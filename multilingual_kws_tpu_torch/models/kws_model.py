@@ -1,0 +1,119 @@
+"""KWS models: embedding classifier and few-shot transfer head.
+
+Counterpart of ``multilingual_kws_tpu/models/kws_model.py``:
+
+- ``KWSEmbeddingModel``: EfficientNetB0 trunk (49x40x1 input) ->
+  GlobalAveragePooling -> Dense 1024 relu -> Dense 1024 relu -> Dense 192
+  selu (the embedding, reference layer "dense_2") -> Dense num_labels logits;
+- ``KWSTransferModel``: the same trunk and embedding head -> Dense 18 tanh
+  -> Dense 3 softmax.
+
+Module names follow the Flax ones, so a Flax parameter path maps onto a
+``state_dict`` key by replacing "/" with "." (``models/convert.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import resolve_device
+from .efficientnet import EfficientNet, EfficientNetB0
+
+EMBEDDING_DIM = 192
+
+
+class EmbeddingHead(nn.Module):
+    """GAP -> 1024 relu -> 1024 relu -> 192 selu (the embedding, float32)."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.dense_0 = nn.Linear(in_features, 1024)
+        self.dense_1 = nn.Linear(1024, 1024)
+        self.dense_2 = nn.Linear(1024, EMBEDDING_DIM)
+
+    def forward(self, feature_map):
+        x = feature_map.mean(dim=(-2, -1))  # GlobalAveragePooling2D (NCHW)
+        x = F.relu(self.dense_0(x))
+        x = F.relu(self.dense_1(x))
+        return F.selu(self.dense_2(x).float())
+
+
+class TransferHead(nn.Module):
+    """Dense 18 tanh -> Dense num_categories softmax."""
+
+    def __init__(self, num_categories: int = 3):
+        super().__init__()
+        self.hidden = nn.Linear(EMBEDDING_DIM, 18)
+        self.out = nn.Linear(18, num_categories)
+
+    def forward(self, embedding):
+        return torch.softmax(self.out(torch.tanh(self.hidden(embedding))), dim=-1)
+
+
+class KWSEmbeddingModel(nn.Module):
+    """Trunk + embedding head + classifier logits (the pretraining model)."""
+
+    def __init__(self, num_labels: int, trunk: EfficientNet):
+        super().__init__()
+        self.trunk = trunk
+        self.embedding_head = EmbeddingHead(trunk.out_channels)
+        self.classifier = nn.Linear(EMBEDDING_DIM, num_labels)
+
+    def embed(self, x):
+        """(B, 49, 40, 1) -> the 192-d embedding."""
+        return self.embedding_head(self.trunk(x))
+
+    def forward(self, x, return_embedding: bool = False):
+        emb = self.embed(x)
+        logits = self.classifier(emb)
+        return (logits, emb) if return_embedding else logits
+
+
+class KWSTransferModel(nn.Module):
+    """Embedding trunk + few-shot head: (B, 49, 40, 1) -> (B, 3) softmax."""
+
+    def __init__(self, trunk: EfficientNet, num_categories: int = 3):
+        super().__init__()
+        self.trunk = trunk
+        self.embedding_head = EmbeddingHead(trunk.out_channels)
+        self.transfer_head = TransferHead(num_categories)
+
+    def embed(self, x):
+        return self.embedding_head(self.trunk(x))
+
+    def forward(self, x):
+        return self.transfer_head(self.embed(x))
+
+
+def make_transfer_model(num_categories: int = 3, device="cuda", **trunk_kw) -> KWSTransferModel:
+    """Full-width EfficientNetB0 transfer model on ``device``, in eval mode,
+    with PyTorch's default initialization (see ``seeded_init_``)."""
+    dev = resolve_device(device)
+    return KWSTransferModel(EfficientNetB0(**trunk_kw), num_categories).to(dev).eval()
+
+
+@torch.no_grad()
+def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter and BN statistic from one seeded CPU generator
+    (He-normal weights, small biases, BN stats near identity), so a model
+    with random weights is the same on every device and run."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, std, mean=0.0):
+        return torch.randn(shape, generator=gen) * std + mean
+
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            w = mod.weight
+            fan_in = w[0].numel()
+            w.copy_(draw(w.shape, (2.0 / fan_in) ** 0.5))
+            if mod.bias is not None:
+                mod.bias.copy_(draw(mod.bias.shape, 0.01))
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.weight.copy_(draw(mod.weight.shape, 0.05, 1.0))
+            mod.bias.copy_(draw(mod.bias.shape, 0.05))
+            mod.running_mean.copy_(draw(mod.running_mean.shape, 0.05))
+            mod.running_var.copy_(draw(mod.running_var.shape, 0.05, 1.0).abs())
+    return model

@@ -1,0 +1,111 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers, so
+one ``nvcc`` call takes seconds). At first use it is compiled for
+``sm_90a`` into ``_build/<name>-<hash of source>.so`` beside the package
+(listed in ``.gitignore``) and loaded; a later process finds the library
+and loads it directly. The C functions take device pointers and the CUDA
+stream as integers and return the launch's ``cudaError_t``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# argtypes of each exported function, per source
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "frontend": {
+        # audio (int16), batch, samples, frames, window, step, channels,
+        # fb_width, window, tw_r, tw_i, stw_r, stw_i, fb_idx, fb_wgt, out,
+        # stream
+        "kws_stream_prefix": [P, I, L, I, I, I, I, I, P, P, P, P, P, P, P, P, P],
+        # base, windows, window_stride, frames, channels, smoothing_bits,
+        # min_signal_remaining, enable_pcan, snr_shift, enable_log,
+        # correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut,
+        # out, out_is_float, stream
+        "kws_stream_suffix": [P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, I, P],
+        "kws_error_string": [I],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return path
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (popen, tmp, target) or None when built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, started) -> str:
+    proc, tmp, target = started
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return log
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Compile the named sources, one nvcc each, all running at once.
+    Returns each fresh build's compiler output (register and shared-memory
+    use from ``-Xptxas -v``); sources already built are skipped."""
+    started = {n: _start(n) for n in names}
+    return {n: _finish(n, s) for n, s in started.items() if s is not None}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        if name not in _LIBS:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.kws_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (launches that are refused
+    never run, and a later synchronize would not report them)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}: {lib.kws_error_string(err).decode()}")

@@ -1,0 +1,100 @@
+"""The stream suffix: per-window noise estimate, noise subtraction, PCAN and
+log, as one CUDA kernel and its plain PyTorch version.
+
+Replaces ``multilingual_kws_tpu/ops/pallas_frontend.py::noise_estimate_scan_u32``
+(the Pallas kernel ``_nr_kernel_u32``) together with the pointwise stages
+that ``micro_jax.nr_pcan_log_int`` runs after it, and the ``(W, 49, 40)``
+window gather of ``micro_jax._stream_impl`` before it: the kernel reads
+rows ``start .. start+F-1`` of the base signal for each window itself. It
+is ``stream_suffix`` in ``csrc/frontend.cu``.
+
+``stream_suffix(base, n, stride, F, frontend)``: window w covers rows
+``w*stride .. w*stride+F-1`` of ``base`` (R, C) and restarts the noise
+state at its first row. Streams use stride 1 (a window per hop); clip
+batches use stride F (one window per clip).
+
+On the card the kernel is bound by bytes: its (W, 49, 40) float32 output
+is ~40x the base rows it reads. One thread per (window, channel) keeps the
+49-step carry in a register and writes each feature once; the source note
+in ``csrc/frontend.cu`` has the rest.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import micro_int as mi
+
+FEATURE_SCALE = 10.0 / 256.0  # reference to_micro_spectrogram output scale
+
+
+def nr_pcan_log_plain(x: torch.Tensor, fe) -> torch.Tensor:
+    """(W, F, C) sqrt-filterbank signal -> (W, F, C) int64 integer features."""
+    tb = fe.tables(x.device)
+    x = x.to(torch.int64).movedim(-2, 0)  # (F, W, C)
+    est = mi.noise_estimate_scan_u32(x, tb["sm"], tb["om"], fe.smoothing_bits)
+    out = mi.nr_subtract(x, est, fe.min_signal_remaining, fe.smoothing_bits)
+    if fe.enable_pcan:
+        gain = mi.wide_dynamic_function(est, tb["wdf_rows"], tb["lut012"])
+        out = mi.pcan_gain(out, gain, fe.snr_shift)
+    if fe.enable_log:
+        out = mi.log_scale_int(out, fe.correction_bits, fe.scale_shift, tb["log_lut"])
+    else:
+        out = out.clamp(max=0xFFFF)
+    return out.movedim(0, -2)
+
+
+def stream_suffix_plain(base, num_windows: int, stride: int, frames: int, fe, scaled: bool = True):
+    """Plain version: gather the windows, then the suffix; int32 raw
+    features or float32 features on the 10/256 scale."""
+    idx = (
+        torch.arange(num_windows, device=base.device)[:, None] * stride
+        + torch.arange(frames, device=base.device)[None, :]
+    )
+    raw = nr_pcan_log_plain(base[idx], fe)
+    if scaled:
+        return raw.to(torch.float32) * FEATURE_SCALE
+    return raw.to(torch.int32)
+
+
+def stream_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int, fe, scaled: bool = True):
+    """(R, C) int32 base signal -> (num_windows, frames, C) features.
+    Kernel on CUDA tensors, plain version on CPU tensors."""
+    if base.dim() != 2:
+        raise ValueError(f"stream_suffix takes (rows, channels), got {tuple(base.shape)}")
+    if num_windows > 0 and (num_windows - 1) * stride + frames > base.shape[0]:
+        raise ValueError(
+            f"{num_windows} windows of {frames} rows at stride {stride} overrun {base.shape[0]} rows"
+        )
+    if base.device.type == "cpu":
+        return stream_suffix_plain(base, num_windows, stride, frames, fe, scaled)
+    if base.device.type != "cuda":
+        raise ValueError(f"stream_suffix: unsupported device {base.device}")
+    if base.dtype != torch.int32 or not base.is_contiguous():
+        raise TypeError(f"stream_suffix takes contiguous int32 rows, got {base.dtype}")
+    c = base.shape[1]
+    if c != fe.num_channels:
+        raise ValueError(f"stream_suffix: {c} channels, frontend has {fe.num_channels}")
+    out = torch.empty(
+        (num_windows, frames, c), dtype=torch.float32 if scaled else torch.int32, device=base.device
+    )
+    if out.numel() == 0:
+        return out
+    tb = fe.tables(base.device, torch.int32)
+    lib = _build.load("frontend")
+    with torch.cuda.device(base.device):
+        err = lib.kws_stream_suffix(
+            base.data_ptr(), num_windows, stride, frames, c,
+            fe.smoothing_bits, fe.min_signal_remaining, int(fe.enable_pcan), fe.snr_shift,
+            int(fe.enable_log), fe.correction_bits, fe.scale_shift,
+            tb["sm"].data_ptr(), tb["om"].data_ptr(), tb["wdf_rows"].data_ptr(),
+            tb["lut012"].data_ptr(), tb["log_lut"].data_ptr(),
+            out.data_ptr(), int(scaled), torch.cuda.current_stream(base.device).cuda_stream,
+        )
+    _build.check(lib, err, "stream_suffix")
+    stream_suffix.launches += 1
+    return out
+
+
+stream_suffix.launches = 0

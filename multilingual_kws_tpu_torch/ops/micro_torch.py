@@ -1,0 +1,250 @@
+"""The bit-exact micro audio frontend in PyTorch (exact mode).
+
+Counterpart of ``multilingual_kws_tpu/ops/micro_jax.py``. The pipeline is
+split as there:
+
+- the stateless prefix (``base_frames``): framing, quantized-Hann window
+  ``>>12``, per-frame input_shift, the 512-point fixed-point kiss FFT,
+  uint32 energies, the exact 64-bit filterbank accumulate, Sqrt64 and
+  ``>>shift``. On a CUDA tensor it is one launch of the ``stream_prefix``
+  kernel (``ops/cuda_fft.py``);
+- the stateful suffix (``nr_pcan_log_int``): the noise-estimate
+  recurrence, noise subtraction, PCAN gain and integer log. On a CUDA
+  tensor it is one launch of the ``stream_suffix`` kernel
+  (``ops/cuda_frontend.py``).
+
+On a CPU tensor both run their plain PyTorch versions (int64 tensors that
+hold uint32 values, ``ops/micro_int.py``). Every output is ``==`` to the
+JAX package's exact mode, and hence to the TFLite op's golden features.
+
+Streaming computes the prefix once per 20 ms hop for the whole stream; each
+window then runs only the suffix over its 49 rows, with the noise state
+restarting at the window start (``stream_features``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import cuda_fft, cuda_frontend
+from . import micro_int as mi
+from .micro_exact import NOISE_REDUCTION_BITS, FrontendConfig, MicroFrontend, _LOG_LUT
+
+
+def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(a).to(like.device)
+
+
+class KissFftrTorch:
+    """Bit-exact fixed-point kiss_fftr(512) on int64 tensors.
+
+    Four radix-4 stages over the 256-point complex substate, then the real
+    post-stage, vectorized over any leading dims. Every intermediate fits
+    int32 (the C code's accumulator width), so int64 never wraps where the
+    C code would not.
+    """
+
+    STAGES = ((64, 1), (16, 4), (4, 16), (1, 64))
+
+    def __init__(self):
+        n = 256
+        phase = -2.0 * np.pi * np.arange(n) / n
+        self.tw_r = np.floor(0.5 + 32767 * np.cos(phase)).astype(np.int64)
+        self.tw_i = np.floor(0.5 + 32767 * np.sin(phase)).astype(np.int64)
+        sphase = -np.pi * ((np.arange(n // 2) + 1.0) / n + 0.5)
+        self.stw_r = np.floor(0.5 + 32767 * np.cos(sphase)).astype(np.int64)
+        self.stw_i = np.floor(0.5 + 32767 * np.sin(sphase)).astype(np.int64)
+        # base-4 digit reversal of the 256 substate indices (an involution)
+        self.perm = np.array(
+            [sum(((i >> (2 * d)) & 3) << (2 * (3 - d)) for d in range(4)) for i in range(n)],
+            np.int64,
+        )
+
+    @staticmethod
+    def _sround(x):
+        return (x + (1 << 14)) >> 15
+
+    def _bfly4(self, fr, fi, fstride: int, m: int):
+        sr = self._sround
+        k = np.arange(m)
+        tw = [
+            (_t(self.tw_r[q * k * fstride], fr), _t(self.tw_i[q * k * fstride], fr))
+            for q in (1, 2, 3)
+        ]
+        xs = [(sr(fr[..., q * m:(q + 1) * m] * 8191), sr(fi[..., q * m:(q + 1) * m] * 8191)) for q in range(4)]
+        (x0r, x0i), rest = xs[0], xs[1:]
+        s = [(sr(xr * tr - xi * ti), sr(xr * ti + xi * tr)) for (xr, xi), (tr, ti) in zip(rest, tw)]
+        (s0r, s0i), (s1r, s1i), (s2r, s2i) = s
+        s5r, s5i = x0r - s1r, x0i - s1i
+        x0r, x0i = x0r + s1r, x0i + s1i
+        s3r, s3i = s0r + s2r, s0i + s2i
+        s4r, s4i = s0r - s2r, s0i - s2i
+        return (
+            torch.cat([x0r + s3r, s5r + s4i, x0r - s3r, s5r - s4i], dim=-1),
+            torch.cat([x0i + s3i, s5i - s4r, x0i - s3i, s5i + s4r], dim=-1),
+        )
+
+    def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(..., 512) int64 (int16 range) -> (out_r, out_i): (..., 257) int64."""
+        sr = self._sround
+        perm = _t(self.perm, x)
+        fr = x[..., 0::2][..., perm]
+        fi = x[..., 1::2][..., perm]
+        lead = fr.shape[:-1]
+        for fstride, m in self.STAGES:
+            groups = 256 // (4 * m)
+            fr, fi = self._bfly4(
+                fr.reshape(*lead, groups, 4 * m), fi.reshape(*lead, groups, 4 * m), fstride, m
+            )
+            fr, fi = fr.reshape(*lead, 256), fi.reshape(*lead, 256)
+
+        tdc_r, tdc_i = sr(fr[..., 0] * 16383), sr(fi[..., 0] * 16383)
+        k = torch.arange(1, 129, device=x.device)
+        fpk_r, fpk_i = sr(fr[..., k] * 16383), sr(fi[..., k] * 16383)
+        fpnk_r, fpnk_i = sr(fr[..., 256 - k] * 16383), sr(-fi[..., 256 - k] * 16383)
+        f1k_r, f1k_i = fpk_r + fpnk_r, fpk_i + fpnk_i
+        f2k_r, f2k_i = fpk_r - fpnk_r, fpk_i - fpnk_i
+        twr, twi = _t(self.stw_r, x), _t(self.stw_i, x)
+        tw_r = sr(f2k_r * twr - f2k_i * twi)
+        tw_i = sr(f2k_r * twi + f2k_i * twr)
+
+        out_r = x.new_zeros((*lead, 257))
+        out_i = x.new_zeros((*lead, 257))
+        out_r[..., 0] = tdc_r + tdc_i
+        out_r[..., 256] = tdc_r - tdc_i
+        out_r[..., k] = (f1k_r + tw_r) >> 1
+        out_i[..., k] = (f1k_i + tw_i) >> 1
+        # bin 128 is written twice, as in the C loop: this write wins
+        out_r[..., 256 - k] = (f1k_r - tw_r) >> 1
+        out_i[..., 256 - k] = (tw_i - f1k_i) >> 1
+        return out_r, out_i
+
+
+class MicroFrontendTorch:
+    """Batched exact micro frontend on one device.
+
+    ``features(audio)``: (..., samples) float in [-1, 1] -> (..., F, C)
+    float32 features on the reference 10/256 scale. Inputs may be numpy
+    arrays (moved to ``device``) or tensors (computed where they lie).
+    """
+
+    def __init__(self, config: FrontendConfig = FrontendConfig(), device="cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        host = MicroFrontend(config)
+        self.window_size = host.window_size
+        self.window_step = host.window_step
+        self.num_channels = config.num_channels
+        # frames per clip of one second (the model's 49 rows)
+        self.clip_frames = 1 + (config.sample_rate - host.window_size) // host.window_step
+        self.smoothing_bits = config.smoothing_bits
+        self.min_signal_remaining = host.min_signal_remaining
+        self.enable_pcan = config.enable_pcan
+        self.enable_log = config.enable_log
+        self.snr_shift = host.snr_shift
+        self.correction_bits = host.correction_bits
+        self.scale_shift = config.scale_shift
+        self.kiss = KissFftrTorch()
+
+        ch = np.arange(config.num_channels)
+        sm = np.where(ch % 2 == 0, host.even_smoothing, host.odd_smoothing).astype(np.int64)
+        fb_idx, fb_wgt = mi.filterbank_tables(host.fb, config.num_channels)
+        if config.enable_pcan:
+            wdf_rows, lut012 = mi.wdf_tables(host.pcan_lut)
+        else:  # unused placeholders keep the kernel's signature uniform
+            wdf_rows, lut012 = np.zeros((32, 3), np.int64), np.zeros(3, np.int64)
+        self._host_tables: Dict[str, np.ndarray] = {
+            "window": host.window_coeffs.astype(np.int64),
+            "tw_r": self.kiss.tw_r,
+            "tw_i": self.kiss.tw_i,
+            "stw_r": self.kiss.stw_r,
+            "stw_i": self.kiss.stw_i,
+            "fb_idx": fb_idx,
+            "fb_wgt": fb_wgt,
+            "sm": sm,
+            "om": (1 << NOISE_REDUCTION_BITS) - sm,
+            "wdf_rows": wdf_rows,
+            "lut012": lut012,
+            "log_lut": _LOG_LUT.astype(np.int64),
+        }
+        self._tables: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
+
+    def tables(self, device, dtype=torch.int64) -> Dict[str, torch.Tensor]:
+        """The frontend's integer tables as contiguous tensors on ``device``
+        (int64 for the plain versions, int32 for the kernels), cached."""
+        key = (torch.device(device), dtype)
+        if key not in self._tables:
+            self._tables[key] = {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(device=device, dtype=dtype)
+                for k, v in self._host_tables.items()
+            }
+        return self._tables[key]
+
+    def _as_tensor(self, audio) -> torch.Tensor:
+        if isinstance(audio, torch.Tensor):
+            return audio
+        return torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
+
+    def num_frames(self, num_samples: int) -> int:
+        if num_samples < self.window_size:
+            return 0
+        return 1 + (num_samples - self.window_size) // self.window_step
+
+    # -- stages ----------------------------------------------------------------
+
+    def base_frames(self, audio_int16) -> torch.Tensor:
+        """(..., samples) int16 -> (..., F, C) int32 sqrt-filterbank
+        signal (uint32 values, all below 2^26)."""
+        audio = self._as_tensor(audio_int16)
+        lead, t = audio.shape[:-1], audio.shape[-1]
+        base = cuda_fft.stream_prefix(audio.reshape(-1, t), self)
+        return base.reshape(*lead, *base.shape[-2:])
+
+    def nr_pcan_log_int(self, signal) -> torch.Tensor:
+        """(..., F, C) sqrt-filterbank signal -> (..., F, C) int32 integer
+        features (uint16 range), noise state restarting per leading index."""
+        signal = self._as_tensor(signal)
+        lead, (f, c) = signal.shape[:-2], signal.shape[-2:]
+        n = int(np.prod(lead))
+        raw = cuda_frontend.stream_suffix(signal.reshape(n * f, c), n, f, f, self, scaled=False)
+        return raw.reshape(signal.shape)
+
+    # -- public entry points ---------------------------------------------------
+
+    def features_from_int16(self, audio_int16) -> torch.Tensor:
+        """(..., samples) int16 -> (..., F, C) float32, 10/256 scale."""
+        base = self.base_frames(audio_int16)
+        lead, (f, c) = base.shape[:-2], base.shape[-2:]
+        n = int(np.prod(lead))
+        feats = cuda_frontend.stream_suffix(base.reshape(n * f, c), n, f, f, self, scaled=True)
+        return feats.reshape(*lead, f, c)
+
+    def features(self, audio_float) -> torch.Tensor:
+        """(..., samples) float waveform in [-1, 1] -> (..., F, C) features:
+        the saturating float->int16 cast of to_micro_spectrogram, then the
+        frontend, scaled by 10/256."""
+        x = self._as_tensor(audio_float)
+        i16 = torch.clamp(torch.trunc(x.to(torch.float32) * 32768.0), -32768.0, 32767.0)
+        return self.features_from_int16(i16.to(torch.int16))
+
+    def stream_features(self, audio_int16, num_windows: int) -> torch.Tensor:
+        """Long audio (samples,) -> (num_windows, F, C) per-window features.
+
+        The prefix runs once per hop over the whole stream; window w is rows
+        w..w+F-1 of it with the noise state restarting at row w, like the
+        reference's independent per-window to_micro_spectrogram calls."""
+        base = self.base_frames(audio_int16)  # (T, C)
+        return cuda_frontend.stream_suffix(
+            base, num_windows, 1, self.clip_frames, self, scaled=True
+        )
+
+
+@functools.lru_cache(maxsize=8)
+def cached_stream_frontend(sample_rate: int = 16000, device: str = "cuda") -> MicroFrontendTorch:
+    """Process-cached frontend, so its device tables upload once."""
+    return MicroFrontendTorch(FrontendConfig(sample_rate=sample_rate), device=device)

@@ -1,0 +1,252 @@
+"""Streaming KWS evaluation engine.
+
+Counterpart of ``multilingual_kws_tpu/stream/engine.py`` (itself the
+equivalent of the reference's batch_streaming_analysis.py): ``StreamFlags``,
+``StreamTarget``, ``calculate_streaming_accuracy`` and ``eval_stream_test``.
+
+- The stateless frontend stages run once over the whole stream and the
+  windows share them (``MicroFrontendTorch.stream_features``); the windows
+  stay on the device.
+- The model sees one batch shape: the last batch is zero-padded and its pad
+  rows' predictions are sliced off.
+- The softmax rows come to the host in one pull.
+- Audio is processed in chunks of at most ``max_chunk_length_sec``; chunks
+  overlap by one clip so no window is lost at a boundary.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
+from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL
+from ..utils.wav import read_wav
+from .detector import DetectorParams, detect_all_thresholds
+from .stats import StreamingAccuracyStats
+
+
+@dataclass(frozen=True)
+class StreamFlags:
+    """Reference StreamFlags (batch_streaming_analysis.py:27-47)."""
+
+    wav: str
+    ground_truth: str
+    target_keyword: str
+    detection_thresholds: Sequence[float]
+    clip_duration_ms: int = 1000
+    clip_stride_ms: int = 20
+    average_window_duration_ms: int = 100
+    suppression_ms: int = 500
+    time_tolerance_ms: int = 750
+    minimum_count: int = 4
+    max_chunk_length_sec: int = 1200
+
+    def labels(self) -> List[str]:
+        return [SILENCE_LABEL, UNKNOWN_WORD_LABEL, self.target_keyword]
+
+
+@dataclass
+class StreamTarget:
+    """Reference StreamTarget (batch_streaming_analysis.py:187-194)."""
+
+    target_lang: str
+    target_word: str
+    model_path: Optional[str]
+    stream_flags: Sequence[StreamFlags]
+    destination_result_pkl: Optional[str] = None
+    destination_result_inferences: Optional[str] = None
+
+
+def stream_feature_chunks(
+    audio: np.ndarray,
+    sample_rate: int,
+    flags: StreamFlags,
+    frontend: Optional[MicroFrontendTorch] = None,
+    device="cuda",
+):
+    """Long float waveform -> iterator of (n_w, 49, 40) float32 feature
+    windows on the device, chunked by max_chunk_length_sec.
+
+    The windows match the reference: range(0, len(audio) - clip_samples,
+    stride_samples). The audio goes to the device once per chunk, as int16."""
+    frontend = frontend or cached_stream_frontend(int(sample_rate), str(resolve_device(device)))
+    clip_samples = int(flags.clip_duration_ms * sample_rate / 1000)
+    stride_samples = int(flags.clip_stride_ms * sample_rate / 1000)
+    audio_data_end = audio.shape[0] - clip_samples
+    if audio_data_end <= 0:
+        return
+    num_windows = int(np.ceil(audio_data_end / stride_samples))
+    i16 = np.clip(np.trunc(audio * 32768.0), -32768, 32767).astype(np.int16)
+
+    max_chunk_windows = max(1, int(flags.max_chunk_length_sec * sample_rate) // stride_samples)
+    w = 0
+    while w < num_windows:
+        n_w = min(max_chunk_windows, num_windows - w)
+        start = w * stride_samples
+        end = start + (n_w - 1) * stride_samples + clip_samples
+        chunk = torch.from_numpy(i16[start:end]).to(frontend.device)
+        yield frontend.stream_features(chunk, n_w)
+        w += n_w
+
+
+def featurize_stream(
+    audio: np.ndarray,
+    sample_rate: int,
+    flags: StreamFlags,
+    frontend: Optional[MicroFrontendTorch] = None,
+    device="cuda",
+) -> np.ndarray:
+    """Long waveform -> host (num_windows, 49, 40) float32 feature windows."""
+    outs = [
+        c.cpu().numpy() for c in stream_feature_chunks(audio, sample_rate, flags, frontend, device)
+    ]
+    if not outs:
+        return np.zeros((0, 49, 40), np.float32)
+    return np.concatenate(outs, axis=0)
+
+
+def _predict_batches(predict_fn, windows: torch.Tensor, batch_size: int) -> list:
+    """predict_fn over (n, F, C) windows in batches of ONE shape
+    (batch_size, F, C, 1): the last batch is zero-padded and the pad rows'
+    predictions are sliced off (the model is row-independent in eval mode)."""
+    preds = []
+    n_w = int(windows.shape[0])
+    for i in range(0, n_w, batch_size):
+        batch = windows[i : i + batch_size]
+        keep = batch.shape[0]
+        if keep < batch_size:
+            batch = torch.nn.functional.pad(batch, (0, 0, 0, 0, 0, batch_size - keep))
+        preds.append(predict_fn(batch[..., None])[:keep])
+    return preds
+
+
+def model_predict_fn(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+    """(B, 49, 40, 1) -> (B, 3) softmax through an eval-mode model."""
+    model.eval()
+
+    def predict(specs: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return model(specs)
+
+    return predict
+
+
+def calculate_streaming_accuracy(
+    predict_fn: Callable,
+    flag_list: Sequence[StreamFlags],
+    existing_inferences: Optional[np.ndarray] = None,
+    frontend: Optional[MicroFrontendTorch] = None,
+    batch_size: int = 8192,
+    verbose: bool = True,
+    device="cuda",
+):
+    """Reference calculate_streaming_accuracy (:50-179).
+
+    predict_fn: (B, 49, 40, 1) float32 tensor -> (B, 3) softmax, or an
+    ``nn.Module`` that computes it. Returns (results list [(flags, {thresh:
+    (found, found_w_conf)})], inferences)."""
+    assert len({f.wav for f in flag_list}) == 1, "can only process one wav"
+    assert len({f.clip_duration_ms for f in flag_list}) == 1, "cannot vary"
+    assert len({f.clip_stride_ms for f in flag_list}) == 1, "cannot vary"
+    if isinstance(predict_fn, torch.nn.Module):
+        predict_fn = model_predict_fn(predict_fn)
+    f0 = flag_list[0]
+
+    audio, sample_rate = read_wav(f0.wav)
+    clip_samples = int(f0.clip_duration_ms * sample_rate / 1000)
+    stride_samples = int(f0.clip_stride_ms * sample_rate / 1000)
+    audio_data_end = audio.shape[0] - clip_samples
+
+    if existing_inferences is not None:
+        inferences = np.asarray(existing_inferences)
+    else:
+        preds = []
+        for windows in stream_feature_chunks(audio, sample_rate, f0, frontend, device):
+            preds.extend(_predict_batches(predict_fn, windows, batch_size))
+        if preds:
+            # one device -> host pull of all softmax rows
+            inferences = torch.cat(preds, dim=0).float().cpu().numpy()
+        else:
+            inferences = np.zeros((0, 3), np.float32)
+
+    times_ms = np.array(
+        [int(off * 1000 / sample_rate) for off in range(0, audio_data_end, stride_samples)],
+        dtype=np.int64,
+    )
+    n = min(len(times_ms), inferences.shape[0])
+    times_ms = times_ms[:n]
+
+    results = []
+    for flags in flag_list:
+        params = DetectorParams(
+            average_window_duration_ms=flags.average_window_duration_ms,
+            suppression_ms=flags.suppression_ms,
+            minimum_count=flags.minimum_count,
+            target_id=2,
+        )
+        per_thresh = detect_all_thresholds(
+            inferences[:n], times_ms, flags.detection_thresholds, params,
+            target_name=flags.target_keyword,
+        )
+        res_thresh = {}
+        for threshold in flags.detection_thresholds:
+            found, found_w_conf = per_thresh[float(threshold)]
+            stats = StreamingAccuracyStats(target_keyword=flags.target_keyword)
+            stats.read_ground_truth_file(flags.ground_truth)
+            stats.calculate_accuracy_stats(found, -1, flags.time_tolerance_ms)
+            if verbose:
+                print(f"results for {threshold:0.2f}")
+                stats.print_accuracy_stats()
+            res_thresh[threshold] = (found, found_w_conf)
+        results.append((flags, res_thresh))
+    return results, inferences
+
+
+def eval_stream_test(
+    st: StreamTarget,
+    predict_fn: Optional[Callable] = None,
+    frontend: Optional[MicroFrontendTorch] = None,
+    verbose: bool = True,
+    batch_size: int = 8192,
+    device="cuda",
+):
+    """Reference eval_stream_test (:197-241): result/inference memoization +
+    streaming accuracy. ``predict_fn`` is a callable or a port model; loading
+    ``st.model_path`` needs the port's checkpoint format, which does not
+    exist yet."""
+    if predict_fn is None:
+        raise NotImplementedError(
+            "eval_stream_test needs predict_fn (a callable or a port model): "
+            "the port cannot load a model from model_path yet"
+        )
+    if st.destination_result_pkl is not None and os.path.isfile(st.destination_result_pkl):
+        print("results already present", st.destination_result_pkl, flush=True)
+        return
+    loaded_inferences = None
+    if st.destination_result_inferences is not None and os.path.isfile(
+        st.destination_result_inferences
+    ):
+        print("inferences already present", flush=True)
+        loaded_inferences = np.load(st.destination_result_inferences)
+
+    results = {}
+    results[st.target_word], inferences = calculate_streaming_accuracy(
+        predict_fn, st.stream_flags, existing_inferences=loaded_inferences,
+        frontend=frontend, batch_size=batch_size, verbose=verbose, device=device,
+    )
+    if st.destination_result_pkl is not None:
+        Path(st.destination_result_pkl).parent.mkdir(parents=True, exist_ok=True)
+        with open(st.destination_result_pkl, "wb") as fh:
+            pickle.dump(results, fh)
+    if loaded_inferences is None and st.destination_result_inferences is not None:
+        Path(st.destination_result_inferences).parent.mkdir(parents=True, exist_ok=True)
+        np.save(st.destination_result_inferences, inferences)
+    return results

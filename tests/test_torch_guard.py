@@ -1,0 +1,103 @@
+"""Boundaries of the PyTorch port: what it imports, and how its entry points
+behave without a card.
+
+The port and ``chip_smoke.py`` import neither JAX (nor flax, optax, orbax)
+nor any module of the JAX package; the entry points default to the card and
+raise, rather than fall back to the CPU, when there is none.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from multilingual_kws_tpu_torch.models import kws_model
+from multilingual_kws_tpu_torch.ops import micro_torch
+from multilingual_kws_tpu_torch.stream import engine
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "multilingual_kws_tpu_torch"
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "multilingual_kws_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_roots(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        "multilingual_kws_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py")
+        if p.name != "__init__.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+_FLAGS = engine.StreamFlags(wav="", ground_truth="", target_keyword="x", detection_thresholds=[0.5])
+_AUDIO = np.zeros(20000, np.float32)
+ENTRY_POINTS = {
+    "MicroFrontendTorch": lambda: micro_torch.MicroFrontendTorch(),
+    "make_transfer_model": lambda: kws_model.make_transfer_model(),
+    "stream_feature_chunks": lambda: next(engine.stream_feature_chunks(_AUDIO, 16000, _FLAGS)),
+    "featurize_stream": lambda: engine.featurize_stream(_AUDIO, 16000, _FLAGS),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_raise_without_a_card(no_card, name):
+    with pytest.raises(RuntimeError, match="device"):
+        ENTRY_POINTS[name]()
+
+
+def test_cpu_entry_points_run_without_a_card(no_card):
+    feats = micro_torch.MicroFrontendTorch(device="cpu").features(np.zeros(16000, np.float32))
+    assert tuple(feats.shape) == (49, 40)
+
+
+def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
+    """Run here (no card) and alone in a directory, it must fail and print
+    no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for script in (REPO / "chip_smoke.py", alone):
+        out = subprocess.run(
+            [sys.executable, str(script)], cwd=script.parent, capture_output=True, text=True,
+            timeout=120,
+        )
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
