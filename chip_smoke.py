@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py              # what a check of the port runs
-    python3 chip_smoke.py --profile    # also: where the main path's time goes
+    python3 chip_smoke.py --profile    # also: where the stream's and a fine-tune
+                                       # epoch's time goes
 
 Builds the port's CUDA kernels from ``multilingual_kws_tpu_torch/csrc`` with
 nvcc, then:
@@ -20,8 +21,27 @@ nvcc, then:
       the random model's target softmax passes 0.5 on about half of the
       windows and the detector runs on non-empty input;
   (d) holds each kernel against its plain version at the main path's
-      shapes (==, and the max |kernel - plain| measured there), times both,
-      and prints one JSON line ``{"kernels": [...]}``.
+      shapes (==, and the max |kernel - plain| measured there) and times
+      both;
+  (e) the few-shot fine-tune slice: holds the clip-frontend and augment
+      kernels against their plain versions (clip_features == plain and ==
+      prefix + suffix; augment_quantize == plain on rows that are not
+      mixed, within one int16 step on fewer than 1e-4 of the mixed rows'
+      samples), then drives ``transfer_learn`` on a synthesized corpus at
+      the JAX defaults (full-width EfficientNetB0, batch 64, 4 epochs x 64
+      steps, 5 shots, no base weights: BN calibration on the card), and one
+      more call with one epoch of phase 2 (``backprop_into_embedding``).
+      It counts both kernels' launches over the two calls and checks: every
+      loss finite and the last epoch's below the first; phase 1 changed the
+      head and no trunk or embedding-head parameter; phase 2 changed the
+      trunk's top conv and no BN tensor; one step on the card against the
+      same step on the CPU (loss rtol 1e-5; gradients rtol 1e-4, atol 1e-4
+      of each tensor's largest, the CPU tests' tolerance); the batch-eval
+      helpers and the streaming engine on the fine-tuned ``predict_fn``;
+      the streaming and resident input pipelines give equal specs. It
+      times the fine-tune step and its parts, and the two kernels at
+      batches of 64 and 2048 clips. Last, one JSON line ``{"kernels":
+      [...]}`` lists all four kernels.
 
 float32 throughout, with TF32 off for cuDNN and matmuls (the precision the
 port's CPU tests hold the model to). Every check that fails raises; the
@@ -53,6 +73,7 @@ BATCH = 2048
 # programming guide, arithmetic throughput of compute capability 9.0).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 33.5e12
+PEAK_FP32_OPS_PER_S = 67e12
 # integer operations per unit of work, counted from the algorithm
 # (csrc/frontend.cu): per 20 ms frame of the prefix (window 960, max|x|
 # 960, shift 480, four radix-4 stages 17920, real post-stage 5120,
@@ -60,6 +81,20 @@ PEAK_INT32_OPS_PER_S = 33.5e12
 # of the suffix (noise estimate 11, PCAN gain 15, shrink 5, log 19, scale 2)
 PREFIX_OPS_PER_FRAME = 960 + 960 + 480 + 17920 + 5120 + 2 * 40 * 28 + 520
 SUFFIX_OPS_PER_ELEMENT = 52
+# float operations per sample of augment_quantize (csrc/augment.cu): pass 1
+# converts, scales and squares the foreground and squares the background,
+# with two sums (6); pass 2 converts and scales the foreground, multiplies
+# and adds the background, clamps, scales, truncates and clamps (11)
+AUGMENT_OPS_PER_SAMPLE = 6 + 11
+FT_BATCH = 64  # the fine-tune's batch (the JAX package's default)
+FT_SHOTS = 5
+
+
+def bound(nbytes, ops, ops_per_s=PEAK_INT32_OPS_PER_S):
+    """(least ms for the work, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def fail(msg: str):
@@ -127,52 +162,369 @@ def edge_cases(rng):
     return {k: np.clip(np.round(v), -32768, 32767).astype(np.int16) for k, v in cases.items()}
 
 
-def profile_main_path(torch, run, out_dir: Path):
-    """Where the main path's time goes: three timed runs (the spread), then
-    one run under torch.profiler: device busy time (the union of device
-    activity), its split by kernel, and the idle share of the wall time.
-    Writes the chrome trace to out_dir."""
+def tone_clip(rng, freqs):
+    """A 1 s clip: a noise floor and a tone sequence (sqrt-sine envelopes, as
+    in synth_stream) at a random onset, as float32."""
+    x = rng.normal(0, 0.004, SR) * rng.uniform(0.3, 3.0)
+    segs = []
+    for f in freqs:
+        tt = np.arange(int(rng.uniform(0.12, 0.22) * SR)) / SR
+        env = np.sqrt(np.clip(np.sin(np.pi * tt / tt[-1]), 0, 1))
+        segs.append(rng.uniform(0.2, 0.5) * env * np.sin(2 * np.pi * f * rng.uniform(0.96, 1.04) * tt))
+    sig = np.concatenate(segs)[:SR]
+    onset = int(rng.integers(0, SR - sig.shape[0] + 1))
+    x[onset : onset + sig.shape[0]] += sig
+    return np.clip(x, -1, 1).astype(np.float32)
+
+
+def synth_corpus(root: Path, seed: int, write_wav):
+    """Seeded few-shot corpus: 'alpha' keyword clips (the stream's tone
+    sequence; FT_SHOTS to train on, 20 to validate), 40 unknown clips (other
+    tone sequences and chirps) and three 8 s background noise wavs."""
+    rng = np.random.default_rng(seed)
+    out = {"train": [], "val": [], "unknown": []}
+    for i in range(FT_SHOTS + 20):
+        path = root / "alpha" / f"alpha_{i}.wav"
+        write_wav(path, tone_clip(rng, (350, 700, 450)), SR)
+        out["train" if i < FT_SHOTS else "val"].append(str(path))
+    t = np.arange(SR) / SR
+    for i in range(40):
+        path = root / "unknown" / f"unknown_{i}.wav"
+        if i % 4:
+            wave = tone_clip(rng, tuple(rng.uniform(900, 3300, 3)))
+        else:
+            wave = 0.3 * np.sin(2 * np.pi * (rng.uniform(400, 1500) + 1500 * t) * t)
+        write_wav(path, np.clip(wave + rng.normal(0, 0.01, SR), -1, 1), SR)
+        out["unknown"].append(str(path))
+    for i in range(3):
+        noise = rng.normal(0, 0.05, 8 * SR) * np.repeat(rng.uniform(0.3, 2.0, 8), SR)
+        write_wav(root / "_background_noise_" / f"noise_{i}.wav", np.clip(noise, -1, 1), SR)
+    out["bg_dir"] = str(root / "_background_noise_")
+    return out
+
+
+def profile_run(torch, runs, out_dir: Path):
+    """Where each run's time goes. ``runs``: (name, run, kernel-name
+    substrings to group device time by). For each: three timed runs (the
+    spread), then one run under torch.profiler: device busy time (the union
+    of device activity), its split by kind, and the idle share of the wall
+    time. Writes each chrome trace to out_dir."""
     from torch.profiler import ProfilerActivity, profile
 
-    walls = []
-    for _ in range(3):
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    busy, end = 0.0, float("-inf")
-    for a, b, _ in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    kinds = {}
-    for a, b, name in spans:
-        low = name.lower()
-        kind = next(
-            (k for k in ("stream_prefix", "stream_suffix", "memcpy", "memset") if k in low),
-            "model_and_other",
+    for name, run, kinds in runs:
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        spans = sorted(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
         )
-        kinds[kind] = kinds.get(kind, 0.0) + (b - a) / 1e3
-    out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "main_path_trace.json"))
-    top = sorted(
-        ((e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()), reverse=True
-    )[:8]
-    print(
-        f"profile: wall of 3 runs {walls} s; profiled run {wall} s, device busy "
-        f"{busy / 1e3} ms ({len(spans)} device events), idle share {1 - busy / 1e6 / wall}; "
-        f"device ms by kind {kinds}; top ops by device ms {top}"
+        busy, end = 0.0, float("-inf")
+        for lo, hi, _ in spans:
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        by_kind = {}
+        for lo, hi, event in spans:
+            kind = next((k for k in kinds if k in event.lower()), "model_and_other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + (hi - lo) / 1e3
+        out_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out_dir / f"{name}_trace.json"))
+        top = sorted(
+            ((e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()), reverse=True
+        )[:8]
+        print(
+            f"profile {name}: wall of 3 runs {walls} s; profiled run {wall} s, device busy "
+            f"{busy / 1e3} ms ({len(spans)} device events), idle share {1 - busy / 1e6 / wall}; "
+            f"device ms by kind {by_kind}; top ops by device ms {top}"
+        )
+
+def finetune_phase(torch, fe, cases, rng):
+    """Phase e: the fine-tune slice on the card (see the module docstring).
+    Returns the ``kernels`` entries of clip_features and augment_quantize,
+    and one resident fine-tune epoch as a function (for ``--profile``)."""
+    import copy
+
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+    from multilingual_kws_tpu_torch.models.kws_model import lecun_init_, make_transfer_model
+    from multilingual_kws_tpu_torch.ops import cuda_augment, cuda_clip, cuda_fft, cuda_frontend
+    from multilingual_kws_tpu_torch.ops.augment import AugmentParams, pad_background_bank
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+    from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
+    from multilingual_kws_tpu_torch.train.evaluate import (
+        evaluate_files_multiclass,
+        evaluate_files_single_target,
     )
+    from multilingual_kws_tpu_torch.train.finetune import _head_and_top, _head_only, transfer_learn
+    from multilingual_kws_tpu_torch.train.steps import make_finetune_step
+    from multilingual_kws_tpu_torch.utils.wav import write_wav
+
+    dev = torch.device("cuda")
+    c = fe.num_channels
+
+    # 1. the two kernels against their plain versions
+    def clip_check(a_np, what):
+        a = torch.from_numpy(np.ascontiguousarray(a_np)).to(dev)
+        got = cuda_clip.clip_features(a, fe)
+        raw = cuda_clip.clip_features(a, fe, scaled=False)
+        torch.cuda.synchronize()
+        plain = cuda_clip.clip_features_plain(a, fe)
+        check(torch.equal(got, plain), f"clip_features != plain on {what}")
+        check(torch.equal(raw, cuda_clip.clip_features_plain(a, fe, scaled=False)),
+              f"clip_features (raw) != plain on {what}")
+        b, nf = a.shape[0], fe.num_frames(a.shape[1])
+        base = cuda_fft.stream_prefix(a, fe).reshape(b * nf, c)
+        split = cuda_frontend.stream_suffix(base, b, nf, nf, fe).reshape(got.shape)
+        check(torch.equal(got, split), f"clip_features != prefix + suffix on {what}")
+        return float((got - plain).abs().max()) if got.numel() else 0.0
+
+    n_clip = 0
+    for name, a in cases.items():
+        clips = a[: a.shape[0] // SR * SR].reshape(-1, SR) if a.shape[0] >= SR else a[None]
+        clip_check(clips, name)
+        n_clip += 1
+    clip_check(np.clip(rng.normal(0, 6000, (3, 9000)), -32768, 32767).astype(np.int16), "9000 samples")
+    loud = rng.uniform(30, 12000, (2048, 1))  # quiet to near full scale, per clip
+    clips = np.clip(np.round(rng.normal(0, 1, (2048, SR)) * loud), -32768, 32767).astype(np.int16)
+    err_clip = {nb: clip_check(clips[:nb], f"{nb} clips") for nb in (64, 2048)}
+    clips_dev = torch.from_numpy(clips).to(dev)
+    a32 = clips_dev[:64].to(torch.int32)
+    check(torch.equal(fe.features_from_int16(a32), fe.features_from_int16(clips_dev[:64])),
+          "int32 audio features differ from int16 audio features on the card")
+    a32[0, 0] = 40000
+    try:
+        fe.features_from_int16(a32)
+        fail("int32 audio outside the int16 range was taken")
+    except ValueError:
+        pass
+
+    sizes = np.array([61234, 17000, 16001], np.int32)
+    bank = np.zeros((3, int(sizes.max())), np.float32)
+    for i, n in enumerate(sizes):
+        bank[i, :n] = rng.normal(0, 0.1, n)
+    bg = torch.from_numpy(pad_background_bank(bank, SR)).to(dev)
+    bg_sizes = torch.from_numpy(sizes).to(dev)
+
+    def aug_inputs(b, max_shift, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d = cuda_augment.draw_augment_params(gen, b, SR, bg_sizes, AugmentParams(time_shift_samples=max_shift))
+        sil = torch.rand((b,), generator=gen, device=dev) < 0.1
+        sil[0] = True
+        rows = torch.randint(0, 2048, (b,), generator=gen, device=dev, dtype=torch.int32)
+        return rows, sil, d
+
+    def aug_check(b, max_shift, seed):
+        rows, sil, d = aug_inputs(b, max_shift, seed)
+        got = cuda_augment.augment_quantize(clips_dev, rows, sil, bg, d)
+        torch.cuda.synchronize()
+        want = cuda_augment.augment_quantize_plain(clips_dev, rows, sil, bg, d)
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        unmixed = sil | (d.volume == 0)
+        check(torch.equal(got[unmixed], want[unmixed]), f"augment_quantize != plain on unmixed rows ({b}, {max_shift})")
+        share = float((diff > 0).to(torch.float64).mean())
+        check(int(diff.max()) <= 1 and share < 1e-4,
+              f"augment_quantize differs from plain by {int(diff.max())} on a share {share} ({b}, {max_shift})")
+        return int(diff.max()), share
+
+    err_aug = {key: aug_check(*key, seed=i) for i, key in enumerate(((11, 1600), (11, 0), (64, 1600), (64, 0), (2048, 1600)))}
+    print(f"phase e: clip_features == plain and == prefix + suffix on {n_clip} edge cases cut into clips, "
+          f"9000-sample clips, 64 and 2048 clips (max |kernel - plain| {err_clip}); int32 audio == int16 "
+          f"audio; augment_quantize (rows, max_shift): (max |kernel - plain| in int16 steps, share of "
+          f"samples that differ) {err_aug}")
+
+    # 2. the slice: transfer_learn at the JAX defaults, then one epoch of phase 2
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = synth_corpus(Path(tmp), 5, write_wav)
+        common = dict(
+            target="alpha", train_files=corpus["train"], val_files=corpus["val"],
+            unknown_files=corpus["unknown"], bg_datadir=corpus["bg_dir"], batch_size=FT_BATCH,
+            device="cuda", verbose=1,
+        )
+        model = lecun_init_(make_transfer_model(device="cpu"), seed=0).to(dev)
+        init = {k: t.clone() for k, t in model.named_parameters()}
+        cuda_clip.clip_features.launches = 0
+        cuda_augment.augment_quantize.launches = 0
+        t0 = time.perf_counter()
+        r1 = transfer_learn(**common, seed=0, model=model)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        after1 = {k: t.clone() for k, t in model.state_dict().items()}
+        t0 = time.perf_counter()
+        r2 = transfer_learn(
+            **common, num_epochs=1, seed=1, model=model, base_params=after1,
+            backprop_into_embedding=True, embedding_lr=1e-4,
+        )
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches = {
+            "clip_features": cuda_clip.clip_features.launches,
+            "augment_quantize": cuda_augment.augment_quantize.launches,
+        }
+
+        # 3. checks
+        steps1 = [l for ep in r1.history[0]["step_loss"] for l in ep]
+        steps2 = [l for h in r2.history for ep in h["step_loss"] for l in ep]
+        check(len(steps1) == 4 * FT_BATCH and len(steps2) == 2 * FT_BATCH, "wrong number of steps")
+        check(np.isfinite(steps1 + steps2).all(), "a non-finite loss")
+        ep_loss = r1.history[0]["loss"]
+        check(ep_loss[-1] < ep_loss[0], f"epoch losses did not fall: {ep_loss}")
+        for k, t in init.items():
+            if not k.startswith("transfer_head."):
+                check(torch.equal(after1[k], t), f"phase 1 changed {k}")
+        check(any(not torch.equal(after1[k], init[k]) for k in init if k.startswith("transfer_head.")),
+              "phase 1 left the head unchanged")
+        after2 = model.state_dict()
+        for k, t in after2.items():
+            frozen = "bn." in k or (k.startswith("trunk.") and not k.startswith("trunk.top.conv."))
+            if frozen:
+                check(torch.equal(t, after1[k]), f"phase 2 changed {k}")
+        check(not torch.equal(after2["trunk.top.conv.weight"], after1["trunk.top.conv.weight"]),
+              "phase 2 left trunk.top.conv unchanged")
+        n_train = 2 + len(steps1) + len(steps2)  # 2 calibration batches
+        check(launches["augment_quantize"] == n_train,
+              f"augment_quantize launched {launches['augment_quantize']} times for {n_train} train batches")
+        check(launches["clip_features"] >= n_train, f"clip_features launched {launches['clip_features']} times")
+
+        # one step on the card against the same step on the CPU
+        specs, labels = next(r2.dataset.train_batches(corpus["train"], FT_BATCH, 1))
+        got = {}
+        for where, m, x, y in (
+            ("cuda", copy.deepcopy(model), specs, labels),
+            ("cpu", copy.deepcopy(model).cpu(), specs.cpu(), labels.cpu()),
+        ):
+            step, _, _ = make_finetune_step(m, 1e-3, _head_and_top)
+            loss = float(step(x, y)["loss"])
+            got[where] = loss, {n: p.grad.cpu() for n, p in m.named_parameters() if p.requires_grad}
+        (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+        check(abs(lg - lc) <= 1e-5 * abs(lc), f"step loss {lg} on the card, {lc} on the CPU")
+        step_err = 0.0
+        for n, w in gc.items():
+            scale = float(w.abs().max())
+            err = float((gg[n] - w).abs().max())
+            check(torch.allclose(gg[n], w, rtol=1e-4, atol=1e-4 * scale), f"gradient of {n}: {err} (max {scale})")
+            step_err = max(step_err, err / max(scale, 1e-30))
+
+        predict = r2.predict_fn()
+        files = corpus["val"] + corpus["unknown"][:20]
+        conf, preds = evaluate_files_single_target(files, 2, predict)
+        check(preds.shape == (len(files), 3) and np.isfinite(preds).all(), "batch eval rows")
+        check(np.abs(preds.sum(1) - 1).max() < 1e-4, "batch eval rows do not sum to 1")
+        multi = evaluate_files_multiclass(corpus["val"], 2, predict)
+        check(len(multi["correct"]) + len(multi["incorrect"]) == len(corpus["val"]), "multiclass eval")
+        wave, labels30 = synth_stream(30, seed=3)
+        wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"
+        write_wav(wav, wave, SR)
+        gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels30))
+        flags = StreamFlags(wav=str(wav), ground_truth=str(gt), target_keyword="alpha",
+                            detection_thresholds=[0.5, 0.9])
+        _, inferences = calculate_streaming_accuracy(predict, [flags], batch_size=BATCH, verbose=False)
+        n_w30 = -(-(30 * SR - SR) // 320)
+        check(inferences.shape == (n_w30, 3) and np.isfinite(inferences).all(), "stream inferences")
+
+        # the streaming pipeline (host batches uploaded by the prefetch
+        # thread) and the resident one give the same specs for one seed
+        pipes = []
+        for resident in (False, True):
+            ds = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], corpus["bg_dir"],
+                              corpus["unknown"], unknown_percentage=50.0, seed=7, device="cuda")
+            it = (ds.train_batches_resident(corpus["train"], FT_BATCH, 3) if resident
+                  else ds.train_batches(corpus["train"], FT_BATCH, 3, prefetch=2))
+            pipes.append(list(it))
+        check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(*pipes)),
+              "the streaming and resident pipelines differ on the card")
+
+        # 4. times: the step and its parts, then the kernels
+        ds = r2.dataset
+        bank_d = ds.build_resident_bank(corpus["train"])
+        draws = list(ds.host_train_indices(corpus["train"], FT_BATCH, FT_BATCH, bank_d))
+        idx, lbl, sil = ds._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+        step, _, _ = make_finetune_step(model, 1e-3, _head_only)
+
+        def transform(i):
+            return ds._train_device(bank_d["bank"], idx[i], sil[i])
+
+        def epoch():
+            for i in range(FT_BATCH):
+                step(transform(i), lbl[i])
+
+        x0 = transform(0)
+        t_transform = cuda_ms(torch, lambda: transform(0), 20)
+        with torch.no_grad():
+            t_forward = cuda_ms(torch, lambda: model(x0), 20)
+        t_step = cuda_ms(torch, lambda: step(x0, lbl[0]), 20)
+        epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) / FT_BATCH * 1e3
+
+    times, plain, bounds = {}, {}, {}
+    for nb in (64, 2048):
+        a = clips_dev[:nb]
+        rows, sil_t, d = aug_inputs(nb, 1600, seed=nb)
+        nf = fe.num_frames(SR)
+        times["clip", nb] = cuda_ms(torch, lambda: cuda_clip.clip_features(a, fe), 20)
+        plain["clip", nb] = cuda_ms(torch, lambda: cuda_clip.clip_features_plain(a, fe), 3)
+        bounds["clip", nb] = bound(nb * SR * 2 + nb * nf * c * 4,
+                                   nb * nf * (PREFIX_OPS_PER_FRAME + c * SUFFIX_OPS_PER_ELEMENT))
+        times["aug", nb] = cuda_ms(torch, lambda: cuda_augment.augment_quantize(clips_dev, rows, sil_t, bg, d), 20)
+        plain["aug", nb] = cuda_ms(torch, lambda: cuda_augment.augment_quantize_plain(clips_dev, rows, sil_t, bg, d), 3)
+        # int16 row in, float32 crop in, int16 out; per clip 21 bytes of draws
+        bounds["aug", nb] = bound(nb * (SR * (2 + 4 + 2) + 21), nb * SR * AUGMENT_OPS_PER_SAMPLE,
+                                  PEAK_FP32_OPS_PER_S)
+    prefix64 = cuda_ms(torch, lambda: cuda_fft.stream_prefix(clips_dev[:64], fe), 20)
+    prefix64_plain = cuda_ms(torch, lambda: cuda_fft.stream_prefix_plain(clips_dev[:64], fe), 3)
+    prefix64_bound = bound(64 * SR * 2 + 64 * 49 * c * 4, 64 * 49 * PREFIX_OPS_PER_FRAME)
+    print(
+        f"phase e: transfer_learn {wall1:.2f} s (calibration, {len(steps1)} steps, 4 evals), "
+        f"then {wall2:.2f} s ({len(steps2)} steps over phases 1 and 2, 2 evals); val accuracy "
+        f"{r1.details['val_accuracy']:.4f} after phase 1, {r2.details['val_accuracy']:.4f} after phase 2; "
+        f"epoch losses {ep_loss}; launches {launches}; card vs CPU step: loss {lg:.7f} / {lc:.7f}, "
+        f"max gradient error {step_err:.2e} of each tensor's largest"
+    )
+    print(
+        f"phase e: fine-tune step at batch {FT_BATCH}: {ms_step:.3f} ms ({1e3 / ms_step:.1f} steps/s, "
+        f"{FT_BATCH * 1e3 / ms_step:.0f} clips/s); by CUDA events: transform (augment, frontend, "
+        f"SpecAugment) {t_transform:.3f} ms, model forward {t_forward:.3f} ms, step (forward, head "
+        f"backward, Adam) {t_step:.3f} ms"
+    )
+    print(
+        "phase e: kernel ms at 64 / 2048 clips: clip_features "
+        f"{times['clip', 64]:.4f} / {times['clip', 2048]:.4f} (plain {plain['clip', 64]:.3f} / "
+        f"{plain['clip', 2048]:.3f}; bound {bounds['clip', 64][0]:.5f} / {bounds['clip', 2048][0]:.5f} "
+        f"by {bounds['clip', 2048][1]}); augment_quantize {times['aug', 64]:.4f} / {times['aug', 2048]:.4f} "
+        f"(plain {plain['aug', 64]:.3f} / {plain['aug', 2048]:.3f}; bound {bounds['aug', 64][0]:.5f} / "
+        f"{bounds['aug', 2048][0]:.5f} by {bounds['aug', 2048][1]}); stream_prefix on 64 clips "
+        f"{prefix64:.4f} (plain {prefix64_plain:.3f}, bound {prefix64_bound[0]:.5f} by {prefix64_bound[1]})"
+    )
+    return epoch, [
+        {
+            "name": "clip_features", "route": "cuda",
+            "source": f"{PKG}/csrc/frontend.cu",
+            "replaces": "multilingual_kws_tpu/ops/pallas_fft.py:723",
+            "launches": launches["clip_features"], "max_abs_err": err_clip[64],
+            "ms": times["clip", 64], "plain_ms": plain["clip", 64],
+            "bound_ms": bounds["clip", 64][0], "bound_by": bounds["clip", 64][1], "library_ms": None,
+        },
+        {
+            "name": "augment_quantize", "route": "cuda",
+            "source": f"{PKG}/csrc/augment.cu",
+            "replaces": "multilingual_kws_tpu/ops/pallas_augment.py:72",
+            "launches": launches["augment_quantize"], "max_abs_err": float(err_aug[64, 1600][0]),
+            "ms": times["aug", 64], "plain_ms": plain["aug", 64],
+            "bound_ms": bounds["aug", 64][0], "bound_by": bounds["aug", 64][1], "library_ms": None,
+        },
+    ]
 
 
 def main() -> int:
@@ -330,10 +682,6 @@ def main() -> int:
     with torch.inference_mode():
         model_ms = cuda_ms(torch, lambda: model(batch), 5)
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT32_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     b_prefix = bound(audio.numel() * 2 + frames * c * 4, frames * PREFIX_OPS_PER_FRAME)
     out_elems = n_w * 49 * c
     b_suffix = bound(frames * c * 4 + out_elems * 4, out_elems * SUFFIX_OPS_PER_ELEMENT)
@@ -355,17 +703,6 @@ def main() -> int:
             "bound_ms": b_suffix[0], "bound_by": b_suffix[1], "library_ms": None,
         },
     ]
-    if "--profile" in sys.argv[1:]:
-        with tempfile.TemporaryDirectory() as tmp:
-            wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"
-            write_wav(wav, wave, SR)
-            gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels))
-            flags = dataclasses.replace(flags, wav=str(wav), ground_truth=str(gt))
-            profile_main_path(
-                torch,
-                lambda: calculate_streaming_accuracy(model, [flags], batch_size=BATCH, verbose=False),
-                ROOT / "chiprun_out",
-            )
     n_batches = -(-n_w // BATCH)
     print(
         f"phase d: kernels == plain versions at the main path's shapes ({frames} frames, "
@@ -373,6 +710,28 @@ def main() -> int:
         f"{model_ms:.3f} ms per batch of {BATCH} ({n_batches} batches: "
         f"{n_batches * model_ms:.1f} ms); kernels {k_prefix + k_suffix:.3f} ms"
     )
+    del cpu_model, batch, base, audio
+
+    # (e) the fine-tune slice
+    finetune_epoch, finetune_kernels = finetune_phase(torch, fe, cases, rng)
+    kernels += finetune_kernels
+    if "--profile" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"
+            write_wav(wav, wave, SR)
+            gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels))
+            flags = dataclasses.replace(flags, wav=str(wav), ground_truth=str(gt))
+            profile_run(
+                torch,
+                [
+                    ("main_path",
+                     lambda: calculate_streaming_accuracy(model, [flags], batch_size=BATCH, verbose=False),
+                     ("stream_prefix", "stream_suffix", "memcpy", "memset")),
+                    ("finetune_epoch", finetune_epoch,
+                     ("augment_quantize", "clip_features", "multi_tensor_apply", "wgrad", "memcpy", "memset")),
+                ],
+                ROOT / "chiprun_out",
+            )
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-// The exact micro frontend's two stream kernels for Hopper (sm_90a).
+// The exact micro frontend's kernels for Hopper (sm_90a).
 //
-// Both compute the TFLite microfrontend's fixed-point arithmetic bit for bit:
+// All compute the TFLite microfrontend's fixed-point arithmetic bit for bit:
 // uint32 values wrap where the C code's do, 64-bit intermediates are native
 // uint64_t, and every result is == to the plain PyTorch versions in
-// ops/cuda_fft.py and ops/cuda_frontend.py (and so to the JAX package and the
-// golden features of the real op).
+// ops/cuda_fft.py, ops/cuda_frontend.py and ops/cuda_clip.py (and so to the
+// JAX package and the golden features of the real op). The per-frame prefix
+// (prefix_frame) and the per-step suffix (suffix_step) are each written once
+// and shared by the kernels below.
 //
 // stream_prefix  replaces multilingual_kws_tpu/ops/pallas_fft.py::window_fft_energy
 //                (_window_fft_energy_kernel) and the filterbank + sqrt64_exact
@@ -28,12 +30,24 @@
 //   One thread per (window, channel) runs the 49-step noise-estimate
 //   recurrence with its carry in a register, and at each step the noise
 //   subtraction, PCAN gain, integer log and the 10/256 scale.
-//   Bound: bytes (the (W, 49, 40) float32 output, ~1960 floats per window,
-//   dwarfs the base rows it reads). Design: it reads the base rows of each
-//   window directly (window w is rows w*stride .. w*stride+F-1), so the
-//   gathered windows never exist in memory; neighbouring threads are
-//   neighbouring channels, so reads and writes coalesce, and the base rows
-//   that 49 windows share come from L1/L2.
+//   Bound: bytes or integer operations, about even (the (W, 49, 40) float32
+//   output, ~1960 floats per window, dwarfs the base rows it reads; 52 ops
+//   per output). Design: it reads the base rows of each window directly
+//   (window w is rows w*stride .. w*stride+F-1), so the gathered windows
+//   never exist in memory; neighbouring threads are neighbouring channels,
+//   so reads and writes coalesce, and the base rows that 49 windows share
+//   come from L1/L2.
+//
+// clip_features  replaces multilingual_kws_tpu/ops/pallas_fft.py::clip_frontend_features
+//                (_clip_frontend_full_kernel): the whole frontend of a clip.
+//   One block per clip. Phase 1 runs prefix_frame over the clip's frames,
+//   four at a time, into a (frames, channels) uint32 array in shared memory
+//   (7.8 KB at 49 frames); phase 2 gives one thread per channel, which runs
+//   the frames-step suffix with its noise state in a register and writes the
+//   features. One launch; the (B, 49, 40) sqrt-filterbank signal never
+//   touches device memory. Bound: integer operations (~1.48 M per 1 s clip,
+//   against 32 KB of audio in and 7.8 KB of features out). Phase 2 keeps
+//   only 40 of the block's 256 threads busy; it is ~7 % of the work.
 //
 // Tables (window, twiddles, filterbank, LUTs) are small int32 device arrays
 // owned by the Python frontend object and read through the read-only cache:
@@ -53,6 +67,38 @@ constexpr int kFramesPerBlock = 4;
 constexpr int kPrefixThreads = kThreadsPerFrame * kFramesPerBlock;
 constexpr int kSub = 256;  // complex substate of the 512-point real FFT
 constexpr int kSuffixThreads = 256;
+// shared memory a clip_features block may hold for its (frames, channels)
+// base rows, beside the prefix's own 12 KB: the sum stays below the 48 KB a
+// block gets without an opt-in (ops/cuda_clip.py routes by the same bound)
+constexpr int kClipMaxBaseBytes = 32768;
+
+struct PrefixArgs {
+  int win, step, channels, fb_width;
+  const int* window;
+  const int* tw_r;
+  const int* tw_i;
+  const int* stw_r;
+  const int* stw_i;
+  const int* fb_idx;
+  const int* fb_wgt;
+};
+
+struct PrefixSmem {
+  int re[kFramesPerBlock][kSub];
+  int im[kFramesPerBlock][kSub];
+  uint32_t en[kFramesPerBlock][kSub + 1];
+  int max[kFramesPerBlock][kThreadsPerFrame / 32];
+};
+
+struct SuffixArgs {
+  int smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log, correction_bits,
+      scale_shift;
+  const int* sm;
+  const int* om;
+  const int* wdf_rows;
+  const int* lut012;
+  const int* log_lut;
+};
 
 __device__ __forceinline__ int sround(long long x) { return (int)((x + (1 << 14)) >> 15); }
 
@@ -83,26 +129,18 @@ __device__ __forceinline__ uint32_t sqrt64_exact(unsigned long long num) {
   return (uint32_t)(r + ((rem > r && r != cap) ? 1 : 0));
 }
 
-__global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
-    const int16_t* __restrict__ audio, int batch, long long samples, int frames, int win, int step,
-    int channels, int fb_width, const int* __restrict__ window, const int* __restrict__ tw_r,
-    const int* __restrict__ tw_i, const int* __restrict__ stw_r, const int* __restrict__ stw_i,
-    const int* __restrict__ fb_idx, const int* __restrict__ fb_wgt, int* __restrict__ out) {
-  __shared__ int s_re[kFramesPerBlock][kSub];
-  __shared__ int s_im[kFramesPerBlock][kSub];
-  __shared__ uint32_t s_en[kFramesPerBlock][kSub + 1];
-  __shared__ int s_max[kFramesPerBlock][kThreadsPerFrame / 32];
-
+// The prefix of one frame per group of kThreadsPerFrame threads: group
+// threadIdx.x / kThreadsPerFrame takes the frame whose first sample is x and,
+// when valid, writes its channels to out[0 .. channels). Every thread of the
+// block must call it: it synchronizes the block.
+__device__ __forceinline__ void prefix_frame(const int16_t* __restrict__ x, bool valid,
+                                             PrefixSmem& sm, const PrefixArgs& a,
+                                             int* __restrict__ out) {
   const int lf = threadIdx.x / kThreadsPerFrame;
   const int t = threadIdx.x % kThreadsPerFrame;
-  const long long g = (long long)blockIdx.x * kFramesPerBlock + lf;  // frame over the batch
-  const bool valid = g < (long long)batch * frames;
-  const long long clip = valid ? g / frames : 0;
-  const long long frame = valid ? g % frames : 0;
-  const int16_t* x = audio + clip * samples + frame * step;
-  int* re = s_re[lf];
-  int* im = s_im[lf];
-  uint32_t* en = s_en[lf];
+  int* re = sm.re[lf];
+  int* im = sm.im[lf];
+  uint32_t* en = sm.en[lf];
 
   // 1. window (>>12, arithmetic) of complex points n = t + 64 j, i.e. samples
   //    2n and 2n+1; the FFT input beyond the window is zero.
@@ -111,16 +149,16 @@ __global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int s0 = 2 * (t + kThreadsPerFrame * j);
-    wr[j] = (valid && s0 < win) ? ((int)x[s0] * __ldg(window + s0)) >> 12 : 0;
-    wi[j] = (valid && s0 + 1 < win) ? ((int)x[s0 + 1] * __ldg(window + s0 + 1)) >> 12 : 0;
+    wr[j] = (valid && s0 < a.win) ? ((int)x[s0] * __ldg(a.window + s0)) >> 12 : 0;
+    wi[j] = (valid && s0 + 1 < a.win) ? ((int)x[s0 + 1] * __ldg(a.window + s0 + 1)) >> 12 : 0;
     mx = max(mx, max(abs(wr[j]), abs(wi[j])));
   }
   // 2. input_shift from the frame's max |x| (two warps per frame)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((t & 31) == 0) s_max[lf][t >> 5] = mx;
+  if ((t & 31) == 0) sm.max[lf][t >> 5] = mx;
   __syncthreads();
-  mx = max(s_max[lf][0], s_max[lf][1]);
+  mx = max(sm.max[lf][0], sm.max[lf][1]);
   const int msb = mx ? 32 - __clz(mx) : 0;
   const int shift = min(max(15 - msb, 0), 15);
 #pragma unroll
@@ -145,9 +183,9 @@ __global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
       xi[q] = sround((long long)im[b0 + q * m] * 8191);
     }
     int s0r, s0i, s1r, s1i, s2r, s2i;
-    cmul(xr[1], xi[1], __ldg(tw_r + k * fstride), __ldg(tw_i + k * fstride), s0r, s0i);
-    cmul(xr[2], xi[2], __ldg(tw_r + 2 * k * fstride), __ldg(tw_i + 2 * k * fstride), s1r, s1i);
-    cmul(xr[3], xi[3], __ldg(tw_r + 3 * k * fstride), __ldg(tw_i + 3 * k * fstride), s2r, s2i);
+    cmul(xr[1], xi[1], __ldg(a.tw_r + k * fstride), __ldg(a.tw_i + k * fstride), s0r, s0i);
+    cmul(xr[2], xi[2], __ldg(a.tw_r + 2 * k * fstride), __ldg(a.tw_i + 2 * k * fstride), s1r, s1i);
+    cmul(xr[3], xi[3], __ldg(a.tw_r + 3 * k * fstride), __ldg(a.tw_i + 3 * k * fstride), s2r, s2i);
     const int s5r = xr[0] - s1r, s5i = xi[0] - s1i;
     const int x0r = xr[0] + s1r, x0i = xi[0] + s1i;
     const int s3r = s0r + s2r, s3i = s0i + s2i;
@@ -173,7 +211,7 @@ __global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
     const int f1k_r = fpk_r + fpnk_r, f1k_i = fpk_i + fpnk_i;
     const int f2k_r = fpk_r - fpnk_r, f2k_i = fpk_i - fpnk_i;
     int twr, twi;
-    cmul(f2k_r, f2k_i, __ldg(stw_r + k - 1), __ldg(stw_i + k - 1), twr, twi);
+    cmul(f2k_r, f2k_i, __ldg(a.stw_r + k - 1), __ldg(a.stw_i + k - 1), twr, twi);
     // bin 128 is written twice by the C loop; its second write wins
     if (k < kSub / 2) en[k] = energy((f1k_r + twr) >> 1, (f1k_i + twi) >> 1);
     en[kSub - k] = energy((f1k_r - twr) >> 1, (twi - f1k_i) >> 1);
@@ -187,15 +225,26 @@ __global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
 
   // 5. exact 64-bit filterbank accumulate, Sqrt64, >>shift
   if (valid) {
-    for (int c = t; c < channels; c += kThreadsPerFrame) {
+    for (int c = t; c < a.channels; c += kThreadsPerFrame) {
       unsigned long long acc = 0;
-      for (int j = 0; j < fb_width; ++j) {
-        const int e = c * fb_width + j;
-        acc += (unsigned long long)en[__ldg(fb_idx + e)] * (unsigned long long)__ldg(fb_wgt + e);
+      for (int j = 0; j < a.fb_width; ++j) {
+        const int e = c * a.fb_width + j;
+        acc += (unsigned long long)en[__ldg(a.fb_idx + e)] * (unsigned long long)__ldg(a.fb_wgt + e);
       }
-      out[g * channels + c] = (int)(sqrt64_exact(acc) >> shift);
+      out[c] = (int)(sqrt64_exact(acc) >> shift);
     }
   }
+}
+
+__global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
+    const int16_t* __restrict__ audio, int batch, long long samples, int frames, PrefixArgs a,
+    int* __restrict__ out) {
+  __shared__ PrefixSmem sm;
+  const long long g = (long long)blockIdx.x * kFramesPerBlock + threadIdx.x / kThreadsPerFrame;
+  const bool valid = g < (long long)batch * frames;  // frame over the batch
+  const long long clip = valid ? g / frames : 0;
+  const long long frame = valid ? g % frames : 0;
+  prefix_frame(audio + clip * samples + frame * a.step, valid, sm, a, out + g * a.channels);
 }
 
 // WideDynamicFunction (pcan_gain_control.c) of a uint32 estimate
@@ -229,46 +278,96 @@ __device__ __forceinline__ uint32_t log_scale(uint32_t x, int correction_bits, i
   return min(logged, 0xFFFFu);
 }
 
+// One step of the suffix for one channel: the noise estimate (carried in
+// est), noise subtraction, PCAN gain and the integer log (or the 16-bit cap).
+__device__ __forceinline__ uint32_t suffix_step(uint32_t sig, uint32_t& est,
+                                                unsigned long long smc, unsigned long long omc,
+                                                const SuffixArgs& a) {
+  // noise estimate: est' = (u64(sig << sb) * sm + u64(est) * om) >> 14
+  const uint32_t su = sig << a.smoothing_bits;
+  est = (uint32_t)(((unsigned long long)su * smc + (unsigned long long)est * omc) >> 14);
+  const uint32_t sub = (su - min(est, su)) >> a.smoothing_bits;
+  const uint32_t floor_ =
+      (uint32_t)(((unsigned long long)sig * (uint32_t)a.min_signal_remaining) >> 14);
+  uint32_t v = max(sub, floor_);
+  if (a.enable_pcan) {
+    const uint32_t gain = (uint32_t)wide_dynamic_function(est, a.wdf_rows, a.lut012);
+    const uint32_t snr = (uint32_t)(((unsigned long long)v * gain) >> a.snr_shift);
+    if (snr >= (2u << 12)) {
+      v = (snr >> 6) - 64;
+    } else {
+      v = (snr * snr) >> 20;
+    }
+  }
+  return a.enable_log ? log_scale(v, a.correction_bits, a.scale_shift, a.log_lut) : min(v, 0xFFFFu);
+}
+
+__device__ __forceinline__ void store_feature(void* __restrict__ out, long long o, uint32_t v,
+                                              int out_is_float) {
+  if (out_is_float) {
+    static_cast<float*>(out)[o] = (float)v * (10.0f / 256.0f);
+  } else {
+    static_cast<int*>(out)[o] = (int)v;
+  }
+}
+
 __global__ void __launch_bounds__(kSuffixThreads) stream_suffix_kernel(
-    const int* __restrict__ base, int windows, int stride, int frames, int channels,
-    int smoothing_bits, int min_signal_remaining, int enable_pcan, int snr_shift, int enable_log,
-    int correction_bits, int scale_shift, const int* __restrict__ sm, const int* __restrict__ om,
-    const int* __restrict__ wdf_rows, const int* __restrict__ lut012,
-    const int* __restrict__ log_lut, void* __restrict__ out, int out_is_float) {
+    const int* __restrict__ base, int windows, int stride, int frames, int channels, SuffixArgs a,
+    void* __restrict__ out, int out_is_float) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)windows * channels) return;
   const int c = (int)(idx % channels);
   const long long w = idx / channels;
-  const unsigned long long smc = (uint32_t)__ldg(sm + c), omc = (uint32_t)__ldg(om + c);
+  const unsigned long long smc = (uint32_t)__ldg(a.sm + c), omc = (uint32_t)__ldg(a.om + c);
   const int* row = base + w * stride * channels + c;
   const long long out0 = w * frames * channels + c;
   uint32_t est = 0;
   for (int t = 0; t < frames; ++t) {
     const uint32_t sig = (uint32_t)__ldg(row + (long long)t * channels);
-    // noise estimate: est' = (u64(sig << sb) * sm + u64(est) * om) >> 14
-    const uint32_t su = sig << smoothing_bits;
-    est = (uint32_t)(((unsigned long long)su * smc + (unsigned long long)est * omc) >> 14);
-    const uint32_t sub = (su - min(est, su)) >> smoothing_bits;
-    const uint32_t floor_ =
-        (uint32_t)(((unsigned long long)sig * (uint32_t)min_signal_remaining) >> 14);
-    uint32_t v = max(sub, floor_);
-    if (enable_pcan) {
-      const uint32_t gain = (uint32_t)wide_dynamic_function(est, wdf_rows, lut012);
-      const uint32_t snr = (uint32_t)(((unsigned long long)v * gain) >> snr_shift);
-      if (snr >= (2u << 12)) {
-        v = (snr >> 6) - 64;
-      } else {
-        v = (snr * snr) >> 20;
-      }
-    }
-    v = enable_log ? log_scale(v, correction_bits, scale_shift, log_lut) : min(v, 0xFFFFu);
-    const long long o = out0 + (long long)t * channels;
-    if (out_is_float) {
-      static_cast<float*>(out)[o] = (float)v * (10.0f / 256.0f);
-    } else {
-      static_cast<int*>(out)[o] = (int)v;
+    store_feature(out, out0 + (long long)t * channels, suffix_step(sig, est, smc, omc, a),
+                  out_is_float);
+  }
+}
+
+__global__ void __launch_bounds__(kPrefixThreads) clip_features_kernel(
+    const int16_t* __restrict__ audio, long long samples, int frames, PrefixArgs pa, SuffixArgs sa,
+    void* __restrict__ out, int out_is_float) {
+  __shared__ PrefixSmem sm;
+  extern __shared__ int s_base[];  // (frames, channels) sqrt-filterbank signal of this clip
+  const long long clip = blockIdx.x;
+  const int16_t* x = audio + clip * samples;
+  const int lf = threadIdx.x / kThreadsPerFrame;
+  // phase 1: the prefix, four frames at a time, into shared memory
+  for (int f0 = 0; f0 < frames; f0 += kFramesPerBlock) {
+    const int f = min(f0 + lf, frames - 1);
+    prefix_frame(x + (long long)f * pa.step, f0 + lf < frames, sm, pa, s_base + f * pa.channels);
+  }
+  __syncthreads();
+  // phase 2: one thread per channel carries the noise state down the frames
+  for (int c = threadIdx.x; c < pa.channels; c += blockDim.x) {
+    const unsigned long long smc = (uint32_t)__ldg(sa.sm + c), omc = (uint32_t)__ldg(sa.om + c);
+    const long long out0 = clip * frames * pa.channels + c;
+    uint32_t est = 0;
+    for (int t = 0; t < frames; ++t) {
+      const uint32_t sig = (uint32_t)s_base[t * pa.channels + c];
+      store_feature(out, out0 + (long long)t * pa.channels, suffix_step(sig, est, smc, omc, sa),
+                    out_is_float);
     }
   }
+}
+
+PrefixArgs prefix_args(int win, int step, int channels, int fb_width, const int* window,
+                       const int* tw_r, const int* tw_i, const int* stw_r, const int* stw_i,
+                       const int* fb_idx, const int* fb_wgt) {
+  return PrefixArgs{win, step, channels, fb_width, window, tw_r, tw_i, stw_r, stw_i, fb_idx, fb_wgt};
+}
+
+SuffixArgs suffix_args(int smoothing_bits, int min_signal_remaining, int enable_pcan,
+                       int snr_shift, int enable_log, int correction_bits, int scale_shift,
+                       const int* sm, const int* om, const int* wdf_rows, const int* lut012,
+                       const int* log_lut) {
+  return SuffixArgs{smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log,
+                    correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut};
 }
 
 }  // namespace
@@ -281,8 +380,9 @@ extern "C" int kws_stream_prefix(const int16_t* audio, int batch, long long samp
   const long long total = (long long)batch * frames;
   const dim3 grid((unsigned)((total + kFramesPerBlock - 1) / kFramesPerBlock));
   stream_prefix_kernel<<<grid, kPrefixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      audio, batch, samples, frames, win, step, channels, fb_width, window, tw_r, tw_i, stw_r,
-      stw_i, fb_idx, fb_wgt, out);
+      audio, batch, samples, frames,
+      prefix_args(win, step, channels, fb_width, window, tw_r, tw_i, stw_r, stw_i, fb_idx, fb_wgt),
+      out);
   return (int)cudaGetLastError();
 }
 
@@ -295,9 +395,30 @@ extern "C" int kws_stream_suffix(const int* base, int windows, int stride, int f
   const long long total = (long long)windows * channels;
   const dim3 grid((unsigned)((total + kSuffixThreads - 1) / kSuffixThreads));
   stream_suffix_kernel<<<grid, kSuffixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      base, windows, stride, frames, channels, smoothing_bits, min_signal_remaining, enable_pcan,
-      snr_shift, enable_log, correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut, out,
-      out_is_float);
+      base, windows, stride, frames, channels,
+      suffix_args(smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log,
+                  correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut),
+      out, out_is_float);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kws_clip_features(const int16_t* audio, int batch, long long samples, int frames,
+                                 int win, int step, int channels, int fb_width, const int* window,
+                                 const int* tw_r, const int* tw_i, const int* stw_r,
+                                 const int* stw_i, const int* fb_idx, const int* fb_wgt,
+                                 int smoothing_bits, int min_signal_remaining, int enable_pcan,
+                                 int snr_shift, int enable_log, int correction_bits,
+                                 int scale_shift, const int* sm, const int* om,
+                                 const int* wdf_rows, const int* lut012, const int* log_lut,
+                                 void* out, int out_is_float, void* stream) {
+  const size_t base_bytes = (size_t)frames * channels * sizeof(int);
+  if (base_bytes > (size_t)kClipMaxBaseBytes) return (int)cudaErrorInvalidValue;
+  clip_features_kernel<<<batch, kPrefixThreads, base_bytes, static_cast<cudaStream_t>(stream)>>>(
+      audio, samples, frames,
+      prefix_args(win, step, channels, fb_width, window, tw_r, tw_i, stw_r, stw_i, fb_idx, fb_wgt),
+      suffix_args(smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log,
+                  correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut),
+      out, out_is_float);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,15 @@ tensor (``models/convert.py``). Keras-compat details kept from there:
   Normalization).
 
 The public boundary is NHWC ``(B, H, W, 1)`` like the JAX package; inside,
-tensors are NCHW. Dropout and drop-connect are training-only and are not
-part of this module yet.
+tensors are NCHW.
+
+In ``train()`` mode BatchNorm normalizes with the batch's statistics, and the
+residual blocks apply drop-connect: per sample, the block's branch is kept
+with probability 1 - rate and scaled by 1/(1 - rate), as Flax's
+``Dropout(broadcast_dims=(1, 2, 3))`` does, with rate
+``drop_connect_rate * block_index / total_blocks``. Its draws come from the
+``torch.Generator`` passed as ``drop_generator``, never from the global RNG.
+In ``eval()`` mode (inference and the few-shot fine-tune) neither applies.
 """
 
 from __future__ import annotations
@@ -102,12 +109,25 @@ class ConvBnAct(nn.Module):
         return F.silu(x) if self.use_act else x
 
 
+def drop_connect(x, rate: float, generator) -> torch.Tensor:
+    """Zero each sample's x with probability ``rate``, scale the rest by
+    1/(1 - rate); the draws come from ``generator``."""
+    if generator is None:
+        raise ValueError("drop-connect in train mode needs drop_generator (a torch.Generator)")
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation."""
 
-    def __init__(self, args: BlockArgs, filters_in: int, filters_out: int, strides: int):
+    def __init__(
+        self, args: BlockArgs, filters_in: int, filters_out: int, strides: int, drop_rate: float = 0.0
+    ):
         super().__init__()
         self.args = args
+        self.drop_rate = drop_rate
         self.residual = strides == 1 and filters_in == filters_out
         expanded = filters_in * args.expand_ratio
         if args.expand_ratio != 1:
@@ -123,7 +143,7 @@ class MBConvBlock(nn.Module):
         self.project_conv = Conv(expanded, filters_out, 1)
         self.project_bn = _bn(filters_out)
 
-    def forward(self, x):
+    def forward(self, x, drop_generator=None):
         inputs = x
         if self.args.expand_ratio != 1:
             x = F.silu(self.expand_bn(self.expand_conv(x)))
@@ -133,7 +153,11 @@ class MBConvBlock(nn.Module):
             se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se))))
             x = x * se
         x = self.project_bn(self.project_conv(x))
-        return x + inputs if self.residual else x
+        if not self.residual:
+            return x
+        if self.training and self.drop_rate > 0:
+            x = drop_connect(x, self.drop_rate, drop_generator)
+        return x + inputs
 
 
 class EfficientNet(nn.Module):
@@ -144,6 +168,7 @@ class EfficientNet(nn.Module):
         self,
         width_coefficient: float = 1.0,
         depth_coefficient: float = 1.0,
+        drop_connect_rate: float = 0.2,
         blocks: Tuple[BlockArgs, ...] = DEFAULT_BLOCKS,
         input_scale: float = 1.0 / 255.0,
         input_bias: float = 0.0,
@@ -155,24 +180,28 @@ class EfficientNet(nn.Module):
         self.stem = ConvBnAct(1, stem, 3, strides=2)  # one feature plane
         self.block_names = []
         cin = stem
+        total = sum(round_repeats(b.num_repeat, depth_coefficient) for b in blocks)
         for stage, b in enumerate(blocks):
             f_in = round_filters(b.filters_in, width_coefficient)
             f_out = round_filters(b.filters_out, width_coefficient)
             for r in range(round_repeats(b.num_repeat, depth_coefficient)):
                 name = f"block{stage + 1}{chr(ord('a') + r)}"
-                block = MBConvBlock(b, f_in if r == 0 else f_out, f_out, b.strides if r == 0 else 1)
+                block = MBConvBlock(
+                    b, f_in if r == 0 else f_out, f_out, b.strides if r == 0 else 1,
+                    drop_rate=drop_connect_rate * len(self.block_names) / total,
+                )
                 self.add_module(name, block)
                 self.block_names.append(name)
                 cin = f_out
         self.out_channels = round_filters(1280, width_coefficient)
         self.top = ConvBnAct(cin, self.out_channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, drop_generator=None):
         x = x * self.input_scale + self.input_bias
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         x = self.stem(x)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, drop_generator)
         return self.top(x)
 
 

@@ -9,7 +9,11 @@ Counterpart of ``multilingual_kws_tpu/models/kws_model.py``:
   -> Dense 3 softmax.
 
 Module names follow the Flax ones, so a Flax parameter path maps onto a
-``state_dict`` key by replacing "/" with "." (``models/convert.py``).
+``state_dict`` key by replacing "/" with "." (``models/convert.py``), and a
+parameter's name split at "." is its Flax path up to the leaf's own name:
+the fine-tune selects trainable parameters by that path
+(``train/finetune.py``). ``drop_generator`` feeds the trunk's train-mode
+drop-connect (``models/efficientnet.py``).
 """
 
 from __future__ import annotations
@@ -61,12 +65,12 @@ class KWSEmbeddingModel(nn.Module):
         self.embedding_head = EmbeddingHead(trunk.out_channels)
         self.classifier = nn.Linear(EMBEDDING_DIM, num_labels)
 
-    def embed(self, x):
+    def embed(self, x, drop_generator=None):
         """(B, 49, 40, 1) -> the 192-d embedding."""
-        return self.embedding_head(self.trunk(x))
+        return self.embedding_head(self.trunk(x, drop_generator))
 
-    def forward(self, x, return_embedding: bool = False):
-        emb = self.embed(x)
+    def forward(self, x, return_embedding: bool = False, drop_generator=None):
+        emb = self.embed(x, drop_generator)
         logits = self.classifier(emb)
         return (logits, emb) if return_embedding else logits
 
@@ -80,11 +84,11 @@ class KWSTransferModel(nn.Module):
         self.embedding_head = EmbeddingHead(trunk.out_channels)
         self.transfer_head = TransferHead(num_categories)
 
-    def embed(self, x):
-        return self.embedding_head(self.trunk(x))
+    def embed(self, x, drop_generator=None):
+        return self.embedding_head(self.trunk(x, drop_generator))
 
-    def forward(self, x):
-        return self.transfer_head(self.embed(x))
+    def forward(self, x, drop_generator=None):
+        return self.transfer_head(self.embed(x, drop_generator))
 
 
 def make_transfer_model(num_categories: int = 3, device="cuda", **trunk_kw) -> KWSTransferModel:
@@ -116,4 +120,24 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
             mod.bias.copy_(draw(mod.bias.shape, 0.05))
             mod.running_mean.copy_(draw(mod.running_mean.shape, 0.05))
             mod.running_var.copy_(draw(mod.running_var.shape, 0.05, 1.0).abs())
+    return model
+
+
+@torch.no_grad()
+def lecun_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Flax's default initialization, from one seeded CPU generator:
+    LeCun-normal kernels (normal truncated at two standard deviations,
+    variance 1/fan_in), zero biases, identity BatchNorm (scale 1, bias 0,
+    statistics mean 0, var 1). The fine-tune's fresh trunk starts here, as
+    the JAX package's ``model.init`` does (with other random bits)."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            w = mod.weight
+            std = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
+            w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std, -2 * std, 2 * std, generator=gen))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
     return model

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # argtypes of each exported function, per source
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -41,6 +41,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut,
         # out, out_is_float, stream
         "kws_stream_suffix": [P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, I, P],
+        # kws_stream_prefix's arguments up to fb_wgt, then kws_stream_suffix's
+        # from smoothing_bits to log_lut, then out, out_is_float, stream
+        "kws_clip_features": [P, I, L, I, I, I, I, I, P, P, P, P, P, P, P,
+                              I, I, I, I, I, I, I, P, P, P, P, P, P, I, P],
+        "kws_error_string": [I],
+    },
+    "augment": {
+        # fg bank (int16), its rows, batch, samples, rows, shifts, is_silence
+        # (uint8), bg bank (float32), its rows, its width, bg idx, bg off,
+        # sil_vol, volume, 1/t, out (int16), stream
+        "kws_augment_quantize": [P, I, I, L, P, P, P, P, I, L, P, P, P, P, F, P, P],
         "kws_error_string": [I],
     },
 }

@@ -17,6 +17,10 @@ On a CPU tensor both run their plain PyTorch versions (int64 tensors that
 hold uint32 values, ``ops/micro_int.py``). Every output is ``==`` to the
 JAX package's exact mode, and hence to the TFLite op's golden features.
 
+Clip batches (``features_from_int16``, ``features``) take both stages in one
+launch of the ``clip_features`` kernel (``ops/cuda_clip.py``) on a CUDA
+tensor, with the clip's signal kept in shared memory between them.
+
 Streaming computes the prefix once per 20 ms hop for the whole stream; each
 window then runs only the suffix over its 49 rows, with the noise state
 restarting at the window start (``stream_features``).
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from . import cuda_fft, cuda_frontend
+from . import cuda_clip, cuda_fft, cuda_frontend
 from . import micro_int as mi
 from .micro_exact import NOISE_REDUCTION_BITS, FrontendConfig, MicroFrontend, _LOG_LUT
 
@@ -217,12 +221,37 @@ class MicroFrontendTorch:
     # -- public entry points ---------------------------------------------------
 
     def features_from_int16(self, audio_int16) -> torch.Tensor:
-        """(..., samples) int16 -> (..., F, C) float32, 10/256 scale."""
-        base = self.base_frames(audio_int16)
-        lead, (f, c) = base.shape[:-2], base.shape[-2:]
+        """(..., samples) int16, or a wider integer type holding int16
+        values, -> (..., F, C) float32, 10/256 scale.
+
+        Clip-scale audio (``cuda_clip.fits``) takes the fused
+        ``clip_features`` kernel; longer audio the prefix and the suffix, as
+        the JAX package gates its fused Pallas kernel. Both give ``==``
+        features."""
+        audio = self._as_int16(self._as_tensor(audio_int16))
+        lead, t = audio.shape[:-1], audio.shape[-1]
+        nf = self.num_frames(t)
+        if cuda_clip.fits(nf, self.num_channels):
+            feats = cuda_clip.clip_features(audio.reshape(-1, t), self, scaled=True)
+            return feats.reshape(*lead, nf, self.num_channels)
+        base = self.base_frames(audio)
+        f, c = base.shape[-2:]
         n = int(np.prod(lead))
         feats = cuda_frontend.stream_suffix(base.reshape(n * f, c), n, f, f, self, scaled=True)
         return feats.reshape(*lead, f, c)
+
+    @staticmethod
+    def _as_int16(audio: torch.Tensor) -> torch.Tensor:
+        """int16 audio as it is; other integer audio cast to int16 after a
+        check that every value lies in the int16 range (raises otherwise:
+        values are never wrapped)."""
+        if audio.dtype == torch.int16:
+            return audio.contiguous()
+        if audio.dtype.is_floating_point or audio.dtype.is_complex or audio.dtype == torch.bool:
+            raise TypeError(f"features_from_int16 takes integer audio, got {audio.dtype}")
+        if audio.numel() and (int(audio.min()) < -32768 or int(audio.max()) > 32767):
+            raise ValueError("features_from_int16: audio values outside the int16 range")
+        return audio.to(torch.int16).contiguous()
 
     def features(self, audio_float) -> torch.Tensor:
         """(..., samples) float waveform in [-1, 1] -> (..., F, C) features:

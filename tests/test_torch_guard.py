@@ -16,9 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from multilingual_kws_tpu_torch.data import dataset
 from multilingual_kws_tpu_torch.models import kws_model
 from multilingual_kws_tpu_torch.ops import micro_torch
+from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 from multilingual_kws_tpu_torch.stream import engine
+from multilingual_kws_tpu_torch.train import evaluate, finetune
+from multilingual_kws_tpu_torch.utils.wav import write_wav
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "multilingual_kws_tpu_torch"
@@ -70,11 +74,16 @@ def no_card(monkeypatch):
 
 _FLAGS = engine.StreamFlags(wav="", ground_truth="", target_keyword="x", detection_thresholds=[0.5])
 _AUDIO = np.zeros(20000, np.float32)
+_SETTINGS = standard_microspeech_model_settings(3)
 ENTRY_POINTS = {
     "MicroFrontendTorch": lambda: micro_torch.MicroFrontendTorch(),
     "make_transfer_model": lambda: kws_model.make_transfer_model(),
     "stream_feature_chunks": lambda: next(engine.stream_feature_chunks(_AUDIO, 16000, _FLAGS)),
     "featurize_stream": lambda: engine.featurize_stream(_AUDIO, 16000, _FLAGS),
+    "AudioDataset": lambda: dataset.AudioDataset(_SETTINGS, ["x"], "no_such_dir", []),
+    "transfer_learn": lambda: finetune.transfer_learn("x", [], [], []),
+    "featurize_files": lambda: evaluate.featurize_files(["no_such.wav"]),
+    "file2spec": lambda: dataset.file2spec(_SETTINGS, "no_such.wav"),
 }
 
 
@@ -84,9 +93,13 @@ def test_entry_points_raise_without_a_card(no_card, name):
         ENTRY_POINTS[name]()
 
 
-def test_cpu_entry_points_run_without_a_card(no_card):
+def test_cpu_entry_points_run_without_a_card(no_card, tmp_path):
     feats = micro_torch.MicroFrontendTorch(device="cpu").features(np.zeros(16000, np.float32))
     assert tuple(feats.shape) == (49, 40)
+    wav = tmp_path / "clip.wav"
+    write_wav(wav, np.zeros(16000, np.float32))
+    assert dataset.file2spec(_SETTINGS, wav, device="cpu").shape == (49, 40)
+    assert evaluate.featurize_files([str(wav)], device="cpu").shape == (1, 49, 40)
 
 
 def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
