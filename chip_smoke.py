@@ -40,8 +40,25 @@ nvcc, then:
       helpers and the streaming engine on the fine-tuned ``predict_fn``;
       the streaming and resident input pipelines give equal specs. It
       times the fine-tune step and its parts, and the two kernels at
-      batches of 64 and 2048 clips. Last, one JSON line ``{"kernels":
-      [...]}`` lists all four kernels.
+      batches of 64 and 2048 clips;
+  (f) the fast frontend mode (``MicroFrontendTorch(mode="fast")``): holds
+      ``noise_scan_f32`` against its plain version (==) at the stream's
+      shape, at 64 and 2048 clips and on the edge cases, drives the
+      10-minute stream of (c) through the fast frontend and the same model
+      (launches, softmax rows, windows/s and detections beside exact
+      mode's), reports the fast-vs-exact feature gap, runs the batch-eval
+      helpers on (e)'s fine-tuned model and one training batch of each input
+      pipeline with a fast frontend (equal specs, and the same augmented
+      int16 as exact mode), and times the fast prefix and the kernel;
+  (g) the probes: holds ``fft_energy`` against its plain version (==, at
+      100,352 rows with extreme rows) and against the energies of the kiss
+      FFT on the stream's own frames, runs the frontend cost decomposition
+      (``probes/fft_cost.py``), holds ``rate_chain`` (each operation class)
+      and ``dot_chain`` against their plain versions (==), and measures the
+      card's rates (``probes/rates.py``), each beside the data-sheet peak it
+      tests; a rate above its peak, or a chain that does not grow linearly
+      with its depth, fails the run. Last, one JSON line ``{"kernels":
+      [...]}`` lists all eight kernels.
 
 float32 throughout, with TF32 off for cuDNN and matmuls (the precision the
 port's CPU tests hold the model to). Every check that fails raises; the
@@ -86,14 +103,32 @@ SUFFIX_OPS_PER_ELEMENT = 52
 # with two sums (6); pass 2 converts and scales the foreground, multiplies
 # and adds the background, clamps, scales, truncates and clamps (11)
 AUGMENT_OPS_PER_SAMPLE = 6 + 11
+# float operations per (window, frame, channel) of noise_scan_f32
+# (csrc/fast.cu): two products, the fused multiply-add (2), the division
+# and the floor
+NOISE_SCAN_OPS_PER_ELEMENT = 6
+# integer operations per row of fft_energy: the four radix-4 stages and the
+# real post-stage with the energies, as counted for the prefix above
+FFT_OPS_PER_ROW = 17920 + 5120
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense (NVIDIA data sheet)
+GRID_STEP = 10.0 / 256.0  # one step of the features' uint16 grid
 FT_BATCH = 64  # the fine-tune's batch (the JAX package's default)
 FT_SHOTS = 5
 
 
-def bound(nbytes, ops, ops_per_s=PEAK_INT32_OPS_PER_S):
+# the work behind each kernel's reported bound: name -> (bytes, operations,
+# the peak their operations are priced at); phase g prices it again at the
+# rates the card measured
+WORK = {}
+
+
+def bound(nbytes, ops, ops_per_s=PEAK_INT32_OPS_PER_S, name=None, bytes_per_s=PEAK_BYTES_PER_S):
     """(least ms for the work, "bytes" or "operations"): the larger of the
-    bytes over the memory rate and the operations over their peak rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    bytes over the memory rate and the operations over their peak rate.
+    ``name`` records the work as the one of that kernel's reported bound."""
+    if name:
+        WORK[name] = (nbytes, ops, ops_per_s)
+    t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -248,10 +283,12 @@ def profile_run(torch, runs, out_dir: Path):
             f"device ms by kind {by_kind}; top ops by device ms {top}"
         )
 
-def finetune_phase(torch, fe, cases, rng):
+def finetune_phase(torch, fe, cases, rng, then=None):
     """Phase e: the fine-tune slice on the card (see the module docstring).
     Returns the ``kernels`` entries of clip_features and augment_quantize,
-    and one resident fine-tune epoch as a function (for ``--profile``)."""
+    one resident fine-tune epoch as a function (for ``--profile``), and what
+    ``then(predict, corpus)`` returns: it runs while the synthesized corpus
+    exists, on the fine-tuned ``predict_fn``."""
     import copy
 
     from multilingual_kws_tpu_torch.data.dataset import AudioDataset
@@ -441,6 +478,7 @@ def finetune_phase(torch, fe, cases, rng):
             pipes.append(list(it))
         check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(*pipes)),
               "the streaming and resident pipelines differ on the card")
+        after = then(predict, corpus) if then else None
 
         # 4. times: the step and its parts, then the kernels
         ds = r2.dataset
@@ -476,12 +514,13 @@ def finetune_phase(torch, fe, cases, rng):
         times["clip", nb] = cuda_ms(torch, lambda: cuda_clip.clip_features(a, fe), 20)
         plain["clip", nb] = cuda_ms(torch, lambda: cuda_clip.clip_features_plain(a, fe), 3)
         bounds["clip", nb] = bound(nb * SR * 2 + nb * nf * c * 4,
-                                   nb * nf * (PREFIX_OPS_PER_FRAME + c * SUFFIX_OPS_PER_ELEMENT))
+                                   nb * nf * (PREFIX_OPS_PER_FRAME + c * SUFFIX_OPS_PER_ELEMENT),
+                                   name="clip_features" if nb == 64 else None)
         times["aug", nb] = cuda_ms(torch, lambda: cuda_augment.augment_quantize(clips_dev, rows, sil_t, bg, d), 20)
         plain["aug", nb] = cuda_ms(torch, lambda: cuda_augment.augment_quantize_plain(clips_dev, rows, sil_t, bg, d), 3)
         # int16 row in, float32 crop in, int16 out; per clip 21 bytes of draws
         bounds["aug", nb] = bound(nb * (SR * (2 + 4 + 2) + 21), nb * SR * AUGMENT_OPS_PER_SAMPLE,
-                                  PEAK_FP32_OPS_PER_S)
+                                  PEAK_FP32_OPS_PER_S, name="augment_quantize" if nb == 64 else None)
     prefix64 = cuda_ms(torch, lambda: cuda_fft.stream_prefix(clips_dev[:64], fe), 20)
     prefix64_plain = cuda_ms(torch, lambda: cuda_fft.stream_prefix_plain(clips_dev[:64], fe), 3)
     prefix64_bound = bound(64 * SR * 2 + 64 * 49 * c * 4, 64 * 49 * PREFIX_OPS_PER_FRAME)
@@ -507,7 +546,7 @@ def finetune_phase(torch, fe, cases, rng):
         f"{bounds['aug', 2048][0]:.5f} by {bounds['aug', 2048][1]}); stream_prefix on 64 clips "
         f"{prefix64:.4f} (plain {prefix64_plain:.3f}, bound {prefix64_bound[0]:.5f} by {prefix64_bound[1]})"
     )
-    return epoch, [
+    return epoch, after, [
         {
             "name": "clip_features", "route": "cuda",
             "source": f"{PKG}/csrc/frontend.cu",
@@ -523,6 +562,294 @@ def finetune_phase(torch, fe, cases, rng):
             "launches": launches["augment_quantize"], "max_abs_err": float(err_aug[64, 1600][0]),
             "ms": times["aug", 64], "plain_ms": plain["aug", 64],
             "bound_ms": bounds["aug", 64][0], "bound_by": bounds["aug", 64][1], "library_ms": None,
+        },
+    ]
+
+
+class _Recorder:
+    """A frontend that keeps each int16 batch it featurizes (to compare two
+    frontends' inputs)."""
+
+    def __init__(self, fe):
+        self.fe, self.seen = fe, []
+
+    def features_from_int16(self, audio):
+        self.seen.append(audio.clone())
+        return self.fe.features_from_int16(audio)
+
+
+def fast_eval(torch, fe, ff, predict, corpus):
+    """Phase f, on phase e's fine-tuned model and corpus: the batch-eval
+    helpers with the fast frontend ``ff`` against the exact ``fe``, and one
+    training batch of each input pipeline with a fast frontend."""
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+    from multilingual_kws_tpu_torch.train.evaluate import evaluate_files_single_target, featurize_files
+
+    files = corpus["val"] + corpus["unknown"][:20]
+    feats = featurize_files(files, frontend=ff)
+    check(feats.shape == (len(files), 49, 40) and np.isfinite(feats).all(), "fast featurize_files")
+    conf_f, preds_f = evaluate_files_single_target(files, 2, predict, frontend=ff)
+    conf_e, preds_e = evaluate_files_single_target(files, 2, predict, frontend=fe)
+    check(np.isfinite(preds_f).all() and np.abs(preds_f.sum(1) - 1).max() < 1e-4, "fast batch-eval rows")
+    res = {
+        "eval_argmax_agree": float((preds_f.argmax(1) == preds_e.argmax(1)).mean()),
+        "eval_max_conf_gap": float(np.abs(conf_f - conf_e).max()),
+    }
+    recs = {}
+    for name, frontend, resident in (("fast", ff, False), ("fast", ff, True), ("exact", fe, False)):
+        rec = _Recorder(frontend)
+        ds = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], corpus["bg_dir"],
+                          corpus["unknown"], unknown_percentage=50.0, seed=7, frontend=rec, device="cuda")
+        it = (ds.train_batches_resident(corpus["train"], FT_BATCH, 1) if resident
+              else ds.train_batches(corpus["train"], FT_BATCH, 1, prefetch=2))
+        recs[name, resident] = rec, list(it)
+    (rs, bs), (rr, br) = recs["fast", False], recs["fast", True]
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(bs, br)),
+          "the fast frontend's streaming and resident pipelines differ")
+    check(bs[0][0].shape == (FT_BATCH, 49, 40, 1) and torch.isfinite(bs[0][0]).all(), "fast training batch")
+    re_, be = recs["exact", False]
+    check(len(rs.seen) == len(re_.seen) == 1 and torch.equal(rs.seen[0], re_.seen[0]),
+          "the fast and exact datasets augmented different int16 batches")
+    check(torch.equal(rs.seen[0], rr.seen[0]), "the two pipelines augmented different int16 batches")
+    res["train_batch_spec_gap_steps"] = float((bs[0][0] - be[0][0]).abs().max() / GRID_STEP)
+    return res
+
+
+def fast_phase(torch, fe, ff, model, wave, labels, i16, n_w, cases, eval_res, exact):
+    """Phase f: the fast frontend mode on the card (see the module
+    docstring). Returns the ``kernels`` entry of noise_scan_f32."""
+    from multilingual_kws_tpu_torch.ops import cuda_fast, micro_fast
+    from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
+    from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
+    from multilingual_kws_tpu_torch.utils.wav import write_wav
+
+    dev = torch.device("cuda")
+    c = ff.num_channels
+
+    # 1. the kernel against its plain version
+    def scan_check(base, n, stride, what):
+        got = cuda_fast.noise_scan_f32(base, n, stride, 49, ff)
+        torch.cuda.synchronize()
+        want = cuda_fast.noise_scan_f32_plain(base, n, stride, 49, ff)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(torch.equal(got, want), f"noise_scan_f32 != plain on {what}: max {err}")
+        return err
+
+    audio = torch.from_numpy(i16).to(dev)
+    base_stream = ff.base_frames(audio)  # (T, C) float32
+    check(base_stream.dtype == torch.float32 and base_stream.shape == (fe.num_frames(i16.shape[0]), c),
+          "fast prefix shape")
+    err_scan = scan_check(base_stream, n_w, 1, "the stream")
+    rng = np.random.default_rng(6)
+    loud = rng.uniform(30, 12000, (2048, 1))
+    clips = torch.from_numpy(
+        np.clip(np.round(rng.normal(0, 1, (2048, SR)) * loud), -32768, 32767).astype(np.int16)
+    ).to(dev)
+    for nb in (64, 2048):
+        scan_check(ff.base_frames(clips[:nb]).reshape(-1, c), nb, 49, f"{nb} clips")
+    n_cmp = 3
+    for name, a in cases.items():
+        base = ff.base_frames(torch.from_numpy(a).to(dev))
+        nw = max(0, -(-(a.shape[0] - SR) // 320))
+        if nw:
+            scan_check(base, nw, 1, f"{name} (windows)")
+            n_cmp += 1
+        if a.shape[0] >= SR:
+            cb = ff.base_frames(torch.from_numpy(a[: a.shape[0] // SR * SR].reshape(-1, SR)).to(dev))
+            scan_check(cb.reshape(-1, c), cb.shape[0], 49, f"{name} (clips)")
+            n_cmp += 1
+
+    # 2. the main path: the 10-minute stream through the fast frontend
+    with tempfile.TemporaryDirectory() as tmp:
+        wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"
+        write_wav(wav, wave, SR)
+        gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels))
+        flags = StreamFlags(wav=str(wav), ground_truth=str(gt), target_keyword="alpha",
+                            detection_thresholds=[0.5, 0.7, 0.9])
+        calculate_streaming_accuracy(model, [dataclasses.replace(flags, max_chunk_length_sec=30)],
+                                     frontend=ff, batch_size=BATCH, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        cuda_fast.noise_scan_f32.launches = 0
+        t1 = time.perf_counter()
+        results, inferences = calculate_streaming_accuracy(model, [flags], frontend=ff, batch_size=BATCH,
+                                                           verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = cuda_fast.noise_scan_f32.launches
+    check(launches > 0, "noise_scan_f32 was not launched on the fast stream")
+    check(inferences.shape == (n_w, 3) and np.isfinite(inferences).all(), "fast stream softmax rows")
+    check(np.abs(inferences.sum(1) - 1).max() < 1e-4, "fast stream softmax rows do not sum to 1")
+    found = {th: len(r[0]) for th, r in results[0][1].items()}
+
+    # 3. the fast-vs-exact feature gap on the stream, and the card against
+    #    the CPU on its first windows (cuFFT against the CPU's FFT)
+    fast_w = ff.stream_features(audio, n_w)
+    steps = (fast_w - fe.stream_features(audio, n_w)).abs() / GRID_STEP
+    gap = {
+        "share_differ": float((steps > 0).double().mean()),
+        "share_over_2_steps": float((steps > 2).double().mean()),
+        "max_steps": float(steps.max()),
+    }
+    del steps
+    cpu_w = MicroFrontendTorch(device="cpu", mode="fast").stream_features(i16[: SR + 255 * 320], 256)
+    card_cpu = float((fast_w[:256].cpu() != cpu_w).double().mean())
+    del fast_w
+
+    # 4. times
+    est = cuda_fast.noise_scan_f32(base_stream, n_w, 1, 49, ff)
+    view = micro_fast.windows_view(base_stream, n_w, 1, 49)
+    k_scan = cuda_ms(torch, lambda: cuda_fast.noise_scan_f32(base_stream, n_w, 1, 49, ff), 20)
+    p_scan = cuda_ms(torch, lambda: cuda_fast.noise_scan_f32_plain(base_stream, n_w, 1, 49, ff), 3)
+    t_pointwise = cuda_ms(torch, lambda: micro_fast.nr_pcan_log_fast(view, est, ff), 3)
+    t_prefix = cuda_ms(torch, lambda: ff.base_frames(audio), 20)
+    t_fast_2048 = cuda_ms(torch, lambda: ff.features_from_int16(clips), 10)
+    t_exact_2048 = cuda_ms(torch, lambda: fe.features_from_int16(clips), 10)
+    out_elems = n_w * 49 * c
+    b_scan = bound(base_stream.numel() * 4 + out_elems * 4, out_elems * NOISE_SCAN_OPS_PER_ELEMENT,
+                   PEAK_FP32_OPS_PER_S, name="noise_scan_f32")
+    print(f"phase f: noise_scan_f32 == plain in {n_cmp} comparisons (the stream's {n_w} windows at "
+          f"stride 1, 64 and 2048 clips at stride 49, edge cases); fast stream: {n_w} windows in "
+          f"{wall:.3f} s, {n_w / wall:.1f} windows/s (exact {n_w / exact['wall']:.1f}); launches "
+          f"{{'noise_scan_f32': {launches}}}; detections per threshold {found} (exact {exact['found']})")
+    print(f"phase f: fast vs exact features on the stream: {gap}; fast features on the card vs the CPU "
+          f"on 256 windows: share that differ {card_cpu}; batch eval and training batches: {eval_res}")
+    print(f"phase f: ms on the stream: fast prefix {t_prefix:.4f}, noise_scan_f32 {k_scan:.4f} (plain "
+          f"{p_scan:.3f}; bound {b_scan[0]:.5f} by {b_scan[1]}), pointwise stages {t_pointwise:.3f}; "
+          f"features_from_int16 on 2048 clips: fast {t_fast_2048:.3f}, exact {t_exact_2048:.3f}")
+    return [{
+        "name": "noise_scan_f32", "route": "cuda",
+        "source": f"{PKG}/csrc/fast.cu",
+        "replaces": "multilingual_kws_tpu/ops/pallas_frontend.py:33",
+        "launches": launches, "max_abs_err": err_scan,
+        "ms": k_scan, "plain_ms": p_scan,
+        "bound_ms": b_scan[0], "bound_by": b_scan[1], "library_ms": None,
+    }]
+
+
+def probe_phase(torch, fe, cases):
+    """Phase g: fft_energy and the rate probes (see the module docstring).
+    Returns the ``kernels`` entries of fft_energy, rate_chain and dot_chain."""
+    from multilingual_kws_tpu_torch.ops import cuda_fft
+    from multilingual_kws_tpu_torch.probes import fft_cost, rates
+
+    dev = torch.device("cuda")
+    rows = BATCH * 49
+    rng = np.random.default_rng(4)
+    xr, xi = (torch.from_numpy(rng.integers(-32768, 32769, (rows, 256)).astype(np.int32)).to(dev)
+              for _ in range(2))
+    alt = torch.where(torch.arange(256, device=dev) % 2 == 0, 32768, -32768).to(torch.int32)
+    for i, (r, m) in enumerate(((32767, 32767), (-32768, -32768), (32768, -32768), (0, 0))):
+        xr[i], xi[i] = r, m
+    xr[4], xi[4] = alt, -alt
+
+    def wrapped(e):
+        return e.to(torch.int64) & 0xFFFFFFFF
+
+    got = cuda_fft.fft_energy(xr, xi, fe)
+    torch.cuda.synchronize()
+    want = cuda_fft.fft_energy_plain(xr, xi, fe)
+    err_fft = float((wrapped(got) - wrapped(want)).abs().max())
+    check(torch.equal(got, want), f"fft_energy != plain at {rows} rows: max {err_fft}")
+    del want
+    # against the kiss FFT's energies on the stream's own frames
+    fft_in, _ = cuda_fft.fft_input(torch.from_numpy(cases["stream_60s"]).to(dev)[None], fe)
+    fft_in = fft_in[0]
+    fr, fi = fe.kiss(fft_in)
+    perm = torch.from_numpy(fe.kiss.perm).to(dev)
+    got = cuda_fft.fft_energy(fft_in[:, 0::2][:, perm].to(torch.int32).contiguous(),
+                              fft_in[:, 1::2][:, perm].to(torch.int32).contiguous(), fe)
+    check(torch.equal(wrapped(got), (fr * fr + fi * fi) & 0xFFFFFFFF),
+          "fft_energy != the kiss FFT's energies on the stream's frames")
+    n_frames = fft_in.shape[0]
+    del fft_in, fr, fi
+
+    cuda_fft.fft_energy.launches = 0
+    cost = fft_cost.fft_cost(batch=BATCH, device="cuda")
+    launches_fft = cuda_fft.fft_energy.launches
+    check(launches_fft > 0, "fft_energy was not launched by the cost probe")
+    k_fft = cuda_ms(torch, lambda: cuda_fft.fft_energy(xr, xi, fe), 20)
+    p_fft = cuda_ms(torch, lambda: cuda_fft.fft_energy_plain(xr, xi, fe), 2)
+    b_fft = bound(rows * 256 * 4 * 2 + rows * 257 * 4, rows * FFT_OPS_PER_ROW, name="fft_energy")
+    del xr, xi
+
+    # the rate kernels against their plain versions, then the rates
+    x, y, xd, w = rates.probe_inputs(dev)
+    err_rate = 0.0
+    for op in rates.OPS:
+        got = rates.rate_chain(x, y, op, 7)
+        torch.cuda.synchronize()
+        want = rates.rate_chain_plain(x, y, op, 7)
+        err_rate = max(err_rate, float((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        check(torch.equal(got, want), f"rate_chain != plain for {op}")
+    got = rates.dot_chain(xd, w, 5)
+    torch.cuda.synchronize()
+    want = rates.dot_chain_plain(xd, w, 5)
+    err_dot = float((got - want).abs().max())
+    check(torch.equal(got, want), f"dot_chain != plain: max {err_dot}")
+    rates.rate_chain.launches = rates.dot_chain.launches = 0
+    r = rates.measure_rates("cuda")
+    launches_rate, launches_dot = rates.rate_chain.launches, rates.dot_chain.launches
+    check(launches_rate > 0 and launches_dot > 0, "the rate kernels were not launched by the probe")
+    for op in rates.OPS_PER_PASS:
+        check(0.8 <= r[op]["linearity"] <= 1.25, f"the {op} chain does not scale with its depth: {r[op]}")
+        check(r[op]["ops_per_s"] <= PEAK_INT32_OPS_PER_S, f"{op} above the INT32 peak: a failed probe {r[op]}")
+    check(r["copy"]["bytes_per_s"] <= PEAK_BYTES_PER_S, f"copy above the memory peak: {r['copy']}")
+    dot = r["dot_bf16"]
+    check(0.8 <= dot["linearity"] <= 1.25 and dot["flop_per_s"] <= PEAK_BF16_FLOPS, f"dot chain: {dot}")
+
+    k1, d2 = rates.DEPTHS[0], rates.DOT_DEPTHS[1]
+    n = x.numel()
+    p_rate = cuda_ms(torch, lambda: rates.rate_chain_plain(x, y, "alu", k1), 1, warmup=0)
+    b_rate = bound(3 * n * 4, n * k1 * rates.OPS_PER_PASS["alu"], name="rate_chain")
+    p_dot = cuda_ms(torch, lambda: rates.dot_chain_plain(xd, w, d2), 2)
+    flop = 2 * xd.shape[0] * 256 * 256 * d2
+    b_dot = bound(xd.numel() * 4 * 2 + 256 * 256 * 2, flop, PEAK_BF16_FLOPS, name="dot_chain")
+    # every kernel's bound again, at the rates this card measured: integer
+    # operations at the alu chain's rate, bf16 at the dot chain's, bytes at
+    # the copy's (float32 stays at the data sheet: no probe measures it)
+    measured = {PEAK_INT32_OPS_PER_S: r["alu"]["ops_per_s"], PEAK_BF16_FLOPS: dot["flop_per_s"],
+                PEAK_FP32_OPS_PER_S: PEAK_FP32_OPS_PER_S}
+    repriced = {
+        k: bound(nb, ops, measured[peak], bytes_per_s=r["copy"]["bytes_per_s"]) for k, (nb, ops, peak) in WORK.items()
+    }
+    print(f"phase g: fft_energy == plain at {rows} rows (extreme rows included) and == the kiss FFT's "
+          f"energies on {n_frames} stream frames; decomposition, us per clip at {BATCH} clips: {cost}")
+    print(f"phase g: rate_chain == plain for {list(rates.OPS)}, dot_chain == plain; rates at depths "
+          f"{rates.DEPTHS} (dot {rates.DOT_DEPTHS}): " + "; ".join(
+              f"{op} {r[op]['ops_per_s'] / 1e12:.3f} T ops/s (linearity {r[op]['linearity']:.3f})"
+              for op in rates.OPS_PER_PASS)
+          + f" -- data sheet INT32 {PEAK_INT32_OPS_PER_S / 1e12:.1f} T/s; copy "
+          f"{r['copy']['bytes_per_s'] / 1e9:.1f} GB/s -- data sheet {PEAK_BYTES_PER_S / 1e9:.0f} GB/s; bf16 "
+          f"dot chain (mma.sync) {dot['flop_per_s'] / 1e12:.1f} TFLOP/s (linearity {dot['linearity']:.3f}), "
+          f"one bf16 torch.matmul pass {dot['matmul_pass_ms']:.4f} ms "
+          f"({flop / d2 / dot['matmul_pass_ms'] / 1e9:.1f} TFLOP/s) -- data sheet {PEAK_BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s; chain ms {[(op, r[op]['ms']) for op in rates.OPS_PER_PASS]}, dot ms {dot['ms']}")
+    print(f"phase g: each kernel's bound (ms, by) at the rates this card measured: {repriced}")
+    return [
+        {
+            "name": "fft_energy", "route": "cuda",
+            "source": f"{PKG}/csrc/frontend.cu",
+            "replaces": "multilingual_kws_tpu/ops/pallas_fft.py:400",
+            "launches": launches_fft, "max_abs_err": err_fft,
+            "ms": k_fft, "plain_ms": p_fft,
+            "bound_ms": b_fft[0], "bound_by": b_fft[1], "library_ms": None,
+        },
+        {
+            "name": "rate_chain", "route": "cuda",
+            "source": f"{PKG}/csrc/probes.cu",
+            "replaces": "tools_dev/vpu_roofline.py:60",
+            "launches": launches_rate, "max_abs_err": err_rate,
+            "ms": r["alu"]["ms"][k1], "plain_ms": p_rate,
+            "bound_ms": b_rate[0], "bound_by": b_rate[1], "library_ms": None,
+        },
+        {
+            "name": "dot_chain", "route": "cuda",
+            "source": f"{PKG}/csrc/probes.cu",
+            "replaces": "tools_dev/vpu_roofline.py:91",
+            "launches": launches_dot, "max_abs_err": err_dot,
+            "ms": dot["ms"][d2], "plain_ms": p_dot,
+            "bound_ms": b_dot[0], "bound_by": b_dot[1], "library_ms": d2 * dot["matmul_pass_ms"],
         },
     ]
 
@@ -682,9 +1009,9 @@ def main() -> int:
     with torch.inference_mode():
         model_ms = cuda_ms(torch, lambda: model(batch), 5)
 
-    b_prefix = bound(audio.numel() * 2 + frames * c * 4, frames * PREFIX_OPS_PER_FRAME)
+    b_prefix = bound(audio.numel() * 2 + frames * c * 4, frames * PREFIX_OPS_PER_FRAME, name="stream_prefix")
     out_elems = n_w * 49 * c
-    b_suffix = bound(frames * c * 4 + out_elems * 4, out_elems * SUFFIX_OPS_PER_ELEMENT)
+    b_suffix = bound(frames * c * 4 + out_elems * 4, out_elems * SUFFIX_OPS_PER_ELEMENT, name="stream_suffix")
     kernels = [
         {
             "name": "stream_prefix", "route": "cuda",
@@ -712,9 +1039,21 @@ def main() -> int:
     )
     del cpu_model, batch, base, audio
 
-    # (e) the fine-tune slice
-    finetune_epoch, finetune_kernels = finetune_phase(torch, fe, cases, rng)
+    # (e) the fine-tune slice, and (f)'s batch eval and training batches on
+    # its fine-tuned model and corpus
+    from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch as Frontend
+
+    ff = Frontend(device="cuda", mode="fast")
+    finetune_epoch, fast_eval_res, finetune_kernels = finetune_phase(
+        torch, fe, cases, rng, then=lambda predict, corpus: fast_eval(torch, fe, ff, predict, corpus)
+    )
     kernels += finetune_kernels
+
+    # (f) the fast frontend mode
+    kernels += fast_phase(torch, fe, ff, model, wave, labels, i16, n_w, cases, fast_eval_res,
+                          exact={"wall": wall, "found": found})
+    # (g) the probes
+    kernels += probe_phase(torch, fe, cases)
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
             wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"

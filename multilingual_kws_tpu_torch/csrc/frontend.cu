@@ -5,8 +5,9 @@
 // uint64_t, and every result is == to the plain PyTorch versions in
 // ops/cuda_fft.py, ops/cuda_frontend.py and ops/cuda_clip.py (and so to the
 // JAX package and the golden features of the real op). The per-frame prefix
-// (prefix_frame) and the per-step suffix (suffix_step) are each written once
-// and shared by the kernels below.
+// (prefix_frame, and within it the FFT and energies, fft_energies) and the
+// per-step suffix (suffix_step) are each written once and shared by the
+// kernels below.
 //
 // stream_prefix  replaces multilingual_kws_tpu/ops/pallas_fft.py::window_fft_energy
 //                (_window_fft_energy_kernel) and the filterbank + sqrt64_exact
@@ -48,6 +49,17 @@
 //   touches device memory. Bound: integer operations (~1.48 M per 1 s clip,
 //   against 32 KB of audio in and 7.8 KB of features out). Phase 2 keeps
 //   only 40 of the block's 256 threads busy; it is ~7 % of the work.
+//
+// fft_energy     replaces multilingual_kws_tpu/ops/pallas_fft.py::kiss_fft_energy
+//                (_fft_energy_kernel): the FFT and energies alone, on rows that
+//                already hold the input-permuted complex substate.
+//   (N, 256) int32 x2 -> (N, 257) int32 holding the uint32 energies (C wrap;
+//   bin 128 from the post-stage's second write). It runs fft_energies, the
+//   same device code as stream_prefix and clip_features, so the three cannot
+//   drift. Bound: integer operations (~23k per row against 2 KB read and 1 KB
+//   written). Design: stream_prefix's, 64 threads per row, 4 rows per block,
+//   the substate and energies in shared memory. The TPU kernel's lane-reversal
+//   matmuls and 512-row padding are gone: a thread reads any index.
 //
 // Tables (window, twiddles, filterbank, LUTs) are small int32 device arrays
 // owned by the Python frontend object and read through the read-only cache:
@@ -129,6 +141,69 @@ __device__ __forceinline__ uint32_t sqrt64_exact(unsigned long long num) {
   return (uint32_t)(r + ((rem > r && r != cap) ? 1 : 0));
 }
 
+// The 512-point kiss FFT of one frame per group of kThreadsPerFrame threads,
+// from its input-permuted 256-point complex substate in re/im (shared
+// memory, written and synchronized by the caller): four radix-4 stages in
+// place, then the real post-stage and the uint32 energies of bins 0..256
+// into en. Thread t owns one butterfly per stage. Every thread of the block
+// must call it: it synchronizes the block.
+__device__ __forceinline__ void fft_energies(int* re, int* im, uint32_t* en, int t,
+                                             const PrefixArgs& a) {
+  // four radix-4 stages (fstride, m) = (64,1) (16,4) (4,16) (1,64)
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int m = 1 << (2 * s);
+    const int fstride = 64 >> (2 * s);
+    const int k = t % m;
+    const int b0 = (t / m) * 4 * m + k;
+    int xr[4], xi[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // C_FIXDIV by 4
+      xr[q] = sround((long long)re[b0 + q * m] * 8191);
+      xi[q] = sround((long long)im[b0 + q * m] * 8191);
+    }
+    int s0r, s0i, s1r, s1i, s2r, s2i;
+    cmul(xr[1], xi[1], __ldg(a.tw_r + k * fstride), __ldg(a.tw_i + k * fstride), s0r, s0i);
+    cmul(xr[2], xi[2], __ldg(a.tw_r + 2 * k * fstride), __ldg(a.tw_i + 2 * k * fstride), s1r, s1i);
+    cmul(xr[3], xi[3], __ldg(a.tw_r + 3 * k * fstride), __ldg(a.tw_i + 3 * k * fstride), s2r, s2i);
+    const int s5r = xr[0] - s1r, s5i = xi[0] - s1i;
+    const int x0r = xr[0] + s1r, x0i = xi[0] + s1i;
+    const int s3r = s0r + s2r, s3i = s0i + s2i;
+    const int s4r = s0r - s2r, s4i = s0i - s2i;
+    re[b0] = x0r + s3r;
+    im[b0] = x0i + s3i;
+    re[b0 + m] = s5r + s4i;
+    im[b0 + m] = s5i - s4r;
+    re[b0 + 2 * m] = x0r - s3r;
+    im[b0 + 2 * m] = x0i - s3i;
+    re[b0 + 3 * m] = s5r - s4i;
+    im[b0 + 3 * m] = s5i + s4r;
+    __syncthreads();
+  }
+
+  // the real post-stage and uint32 energies: thread t takes k = t+1 and t+65
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = t + 1 + kThreadsPerFrame * h;
+    const int fpk_r = sround((long long)re[k] * 16383), fpk_i = sround((long long)im[k] * 16383);
+    const int fpnk_r = sround((long long)re[kSub - k] * 16383);
+    const int fpnk_i = sround(-(long long)im[kSub - k] * 16383);
+    const int f1k_r = fpk_r + fpnk_r, f1k_i = fpk_i + fpnk_i;
+    const int f2k_r = fpk_r - fpnk_r, f2k_i = fpk_i - fpnk_i;
+    int twr, twi;
+    cmul(f2k_r, f2k_i, __ldg(a.stw_r + k - 1), __ldg(a.stw_i + k - 1), twr, twi);
+    // bin 128 is written twice by the C loop; its second write wins
+    if (k < kSub / 2) en[k] = energy((f1k_r + twr) >> 1, (f1k_i + twi) >> 1);
+    en[kSub - k] = energy((f1k_r - twr) >> 1, (twi - f1k_i) >> 1);
+  }
+  if (t == 0) {
+    const int tdc_r = sround((long long)re[0] * 16383), tdc_i = sround((long long)im[0] * 16383);
+    en[0] = energy(tdc_r + tdc_i, 0);
+    en[kSub] = energy(tdc_r - tdc_i, 0);
+  }
+  __syncthreads();
+}
+
 // The prefix of one frame per group of kThreadsPerFrame threads: group
 // threadIdx.x / kThreadsPerFrame takes the frame whose first sample is x and,
 // when valid, writes its channels to out[0 .. channels). Every thread of the
@@ -169,61 +244,9 @@ __device__ __forceinline__ void prefix_frame(const int16_t* __restrict__ x, bool
   }
   __syncthreads();
 
-  // 3. four radix-4 stages (fstride, m) = (64,1) (16,4) (4,16) (1,64)
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int m = 1 << (2 * s);
-    const int fstride = 64 >> (2 * s);
-    const int k = t % m;
-    const int b0 = (t / m) * 4 * m + k;
-    int xr[4], xi[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // C_FIXDIV by 4
-      xr[q] = sround((long long)re[b0 + q * m] * 8191);
-      xi[q] = sround((long long)im[b0 + q * m] * 8191);
-    }
-    int s0r, s0i, s1r, s1i, s2r, s2i;
-    cmul(xr[1], xi[1], __ldg(a.tw_r + k * fstride), __ldg(a.tw_i + k * fstride), s0r, s0i);
-    cmul(xr[2], xi[2], __ldg(a.tw_r + 2 * k * fstride), __ldg(a.tw_i + 2 * k * fstride), s1r, s1i);
-    cmul(xr[3], xi[3], __ldg(a.tw_r + 3 * k * fstride), __ldg(a.tw_i + 3 * k * fstride), s2r, s2i);
-    const int s5r = xr[0] - s1r, s5i = xi[0] - s1i;
-    const int x0r = xr[0] + s1r, x0i = xi[0] + s1i;
-    const int s3r = s0r + s2r, s3i = s0i + s2i;
-    const int s4r = s0r - s2r, s4i = s0i - s2i;
-    re[b0] = x0r + s3r;
-    im[b0] = x0i + s3i;
-    re[b0 + m] = s5r + s4i;
-    im[b0 + m] = s5i - s4r;
-    re[b0 + 2 * m] = x0r - s3r;
-    im[b0 + 2 * m] = x0i - s3i;
-    re[b0 + 3 * m] = s5r - s4i;
-    im[b0 + 3 * m] = s5i + s4r;
-    __syncthreads();
-  }
+  fft_energies(re, im, en, t, a);
 
-  // 4. real post-stage and uint32 energies: thread t takes k = t+1 and t+65
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int k = t + 1 + kThreadsPerFrame * h;
-    const int fpk_r = sround((long long)re[k] * 16383), fpk_i = sround((long long)im[k] * 16383);
-    const int fpnk_r = sround((long long)re[kSub - k] * 16383);
-    const int fpnk_i = sround(-(long long)im[kSub - k] * 16383);
-    const int f1k_r = fpk_r + fpnk_r, f1k_i = fpk_i + fpnk_i;
-    const int f2k_r = fpk_r - fpnk_r, f2k_i = fpk_i - fpnk_i;
-    int twr, twi;
-    cmul(f2k_r, f2k_i, __ldg(a.stw_r + k - 1), __ldg(a.stw_i + k - 1), twr, twi);
-    // bin 128 is written twice by the C loop; its second write wins
-    if (k < kSub / 2) en[k] = energy((f1k_r + twr) >> 1, (f1k_i + twi) >> 1);
-    en[kSub - k] = energy((f1k_r - twr) >> 1, (twi - f1k_i) >> 1);
-  }
-  if (t == 0) {
-    const int tdc_r = sround((long long)re[0] * 16383), tdc_i = sround((long long)im[0] * 16383);
-    en[0] = energy(tdc_r + tdc_i, 0);
-    en[kSub] = energy(tdc_r - tdc_i, 0);
-  }
-  __syncthreads();
-
-  // 5. exact 64-bit filterbank accumulate, Sqrt64, >>shift
+  // 3. exact 64-bit filterbank accumulate, Sqrt64, >>shift
   if (valid) {
     for (int c = t; c < a.channels; c += kThreadsPerFrame) {
       unsigned long long acc = 0;
@@ -329,6 +352,28 @@ __global__ void __launch_bounds__(kSuffixThreads) stream_suffix_kernel(
   }
 }
 
+// Rows of the input-permuted complex substate -> their uint32 energies.
+__global__ void __launch_bounds__(kPrefixThreads) fft_energy_kernel(
+    const int* __restrict__ xr, const int* __restrict__ xi, long long rows, PrefixArgs a,
+    int* __restrict__ out) {
+  __shared__ PrefixSmem sm;
+  const int lf = threadIdx.x / kThreadsPerFrame;
+  const int t = threadIdx.x % kThreadsPerFrame;
+  const long long row = (long long)blockIdx.x * kFramesPerBlock + lf;
+  const bool valid = row < rows;
+#pragma unroll
+  for (int j = 0; j < kSub / kThreadsPerFrame; ++j) {
+    const int n = t + kThreadsPerFrame * j;
+    sm.re[lf][n] = valid ? __ldg(xr + row * kSub + n) : 0;
+    sm.im[lf][n] = valid ? __ldg(xi + row * kSub + n) : 0;
+  }
+  __syncthreads();
+  fft_energies(sm.re[lf], sm.im[lf], sm.en[lf], t, a);
+  if (valid) {
+    for (int k = t; k <= kSub; k += kThreadsPerFrame) out[row * (kSub + 1) + k] = (int)sm.en[lf][k];
+  }
+}
+
 __global__ void __launch_bounds__(kPrefixThreads) clip_features_kernel(
     const int16_t* __restrict__ audio, long long samples, int frames, PrefixArgs pa, SuffixArgs sa,
     void* __restrict__ out, int out_is_float) {
@@ -419,6 +464,16 @@ extern "C" int kws_clip_features(const int16_t* audio, int batch, long long samp
       suffix_args(smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log,
                   correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut),
       out, out_is_float);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kws_fft_energy(const int* xr, const int* xi, long long rows, const int* tw_r,
+                              const int* tw_i, const int* stw_r, const int* stw_i, int* out,
+                              void* stream) {
+  const dim3 grid((unsigned)((rows + kFramesPerBlock - 1) / kFramesPerBlock));
+  fft_energy_kernel<<<grid, kPrefixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, rows,
+      prefix_args(0, 0, 0, 0, nullptr, tw_r, tw_i, stw_r, stw_i, nullptr, nullptr), out);
   return (int)cudaGetLastError();
 }
 

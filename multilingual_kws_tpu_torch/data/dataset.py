@@ -6,7 +6,8 @@ which clip fills each batch slot (target, unknown or silence; file IO lives
 there); the device applies the whole train transform to the batch:
 
     augment_quantize (CUDA: gather, shift, crop, mix, int16 quantize)
-      -> features_from_int16 (CUDA: clip_features) -> SpecAugment
+      -> features_from_int16 (CUDA: clip_features; in fast mode the fast
+         prefix and noise_scan_f32) -> SpecAugment
 
 Label order is the reference's: [_silence_, _unknown_, word1, ...].
 

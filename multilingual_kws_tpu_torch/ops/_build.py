@@ -45,6 +45,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # from smoothing_bits to log_lut, then out, out_is_float, stream
         "kws_clip_features": [P, I, L, I, I, I, I, I, P, P, P, P, P, P, P,
                               I, I, I, I, I, I, I, P, P, P, P, P, P, I, P],
+        # xr, xi, rows, tw_r, tw_i, stw_r, stw_i, out, stream
+        "kws_fft_energy": [P, P, L, P, P, P, P, P, P],
+        "kws_error_string": [I],
+    },
+    "fast": {
+        # base (float32), windows, window_stride, frames, channels, sm, om,
+        # sb, nrb, out, stream
+        "kws_noise_scan_f32": [P, I, I, I, I, P, P, F, F, P, P],
+        "kws_error_string": [I],
+    },
+    "probes": {
+        # x, y, n, k, op, out, stream
+        "kws_rate_chain": [P, P, L, I, I, P, P],
+        # x (float32), w transposed (bf16), rows, k, out, stream
+        "kws_dot_chain": [P, P, L, I, P, P],
         "kws_error_string": [I],
     },
     "augment": {

@@ -1,7 +1,8 @@
-"""The bit-exact micro audio frontend in PyTorch (exact mode).
+"""The micro audio frontend in PyTorch: the bit-exact mode and the fast mode.
 
 Counterpart of ``multilingual_kws_tpu/ops/micro_jax.py``. The pipeline is
-split as there:
+split as there (exact mode below; ``mode="fast"``, a float rFFT prefix and
+an integer-valued float32 suffix, is ``ops/micro_fast.py``):
 
 - the stateless prefix (``base_frames``): framing, quantized-Hann window
   ``>>12``, per-frame input_shift, the 512-point fixed-point kiss FFT,
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from . import cuda_clip, cuda_fft, cuda_frontend
+from . import cuda_clip, cuda_fast, cuda_fft, cuda_frontend, micro_fast
 from . import micro_int as mi
 from .micro_exact import NOISE_REDUCTION_BITS, FrontendConfig, MicroFrontend, _LOG_LUT
 
@@ -95,10 +96,14 @@ class KissFftrTorch:
 
     def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(..., 512) int64 (int16 range) -> (out_r, out_i): (..., 257) int64."""
-        sr = self._sround
         perm = _t(self.perm, x)
-        fr = x[..., 0::2][..., perm]
-        fi = x[..., 1::2][..., perm]
+        return self.substate(x[..., 0::2][..., perm], x[..., 1::2][..., perm])
+
+    def substate(self, fr: torch.Tensor, fi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The input-permuted complex substate (even and odd samples, each in
+        base-4 digit-reversed order), (..., 256) int64 x2 -> (out_r, out_i):
+        the four radix-4 stages and the real post-stage, (..., 257) int64."""
+        sr = self._sround
         lead = fr.shape[:-1]
         for fstride, m in self.STAGES:
             groups = 256 // (4 * m)
@@ -108,17 +113,17 @@ class KissFftrTorch:
             fr, fi = fr.reshape(*lead, 256), fi.reshape(*lead, 256)
 
         tdc_r, tdc_i = sr(fr[..., 0] * 16383), sr(fi[..., 0] * 16383)
-        k = torch.arange(1, 129, device=x.device)
+        k = torch.arange(1, 129, device=fr.device)
         fpk_r, fpk_i = sr(fr[..., k] * 16383), sr(fi[..., k] * 16383)
         fpnk_r, fpnk_i = sr(fr[..., 256 - k] * 16383), sr(-fi[..., 256 - k] * 16383)
         f1k_r, f1k_i = fpk_r + fpnk_r, fpk_i + fpnk_i
         f2k_r, f2k_i = fpk_r - fpnk_r, fpk_i - fpnk_i
-        twr, twi = _t(self.stw_r, x), _t(self.stw_i, x)
+        twr, twi = _t(self.stw_r, fr), _t(self.stw_i, fr)
         tw_r = sr(f2k_r * twr - f2k_i * twi)
         tw_i = sr(f2k_r * twi + f2k_i * twr)
 
-        out_r = x.new_zeros((*lead, 257))
-        out_i = x.new_zeros((*lead, 257))
+        out_r = fr.new_zeros((*lead, 257))
+        out_i = fr.new_zeros((*lead, 257))
         out_r[..., 0] = tdc_r + tdc_i
         out_r[..., 256] = tdc_r - tdc_i
         out_r[..., k] = (f1k_r + tw_r) >> 1
@@ -130,16 +135,26 @@ class KissFftrTorch:
 
 
 class MicroFrontendTorch:
-    """Batched exact micro frontend on one device.
+    """Batched micro frontend on one device.
 
     ``features(audio)``: (..., samples) float in [-1, 1] -> (..., F, C)
     float32 features on the reference 10/256 scale. Inputs may be numpy
     arrays (moved to ``device``) or tensors (computed where they lie).
+
+    ``mode="exact"`` (the default) is bit-exact to the TFLite op.
+    ``mode="fast"`` is the JAX package's fast mode (``ops/micro_fast.py``):
+    a float rFFT prefix, features within a few grid steps of exact mode's.
+    ``quantize`` rounds fast mode's features (exact mode's are integers).
     """
 
-    def __init__(self, config: FrontendConfig = FrontendConfig(), device="cuda"):
+    def __init__(self, config: FrontendConfig = FrontendConfig(), device="cuda", mode: str = "exact",
+                 quantize: bool = True):
+        if mode not in ("exact", "fast"):
+            raise ValueError(f"mode must be 'exact' or 'fast', got {mode!r}")
         self.device = resolve_device(device)
         self.config = config
+        self.mode = mode
+        self.quantize = quantize
         host = MicroFrontend(config)
         self.window_size = host.window_size
         self.window_step = host.window_step
@@ -177,6 +192,8 @@ class MicroFrontendTorch:
             "log_lut": _LOG_LUT.astype(np.int64),
         }
         self._tables: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
+        self._fast_host = micro_fast.fast_host_tables(host, config) if mode == "fast" else {}
+        self._fast_tables: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
     def tables(self, device, dtype=torch.int64) -> Dict[str, torch.Tensor]:
         """The frontend's integer tables as contiguous tensors on ``device``
@@ -188,6 +205,15 @@ class MicroFrontendTorch:
                 for k, v in self._host_tables.items()
             }
         return self._tables[key]
+
+    def fast_tables(self, device) -> Dict[str, torch.Tensor]:
+        """Fast mode's float32 tables on ``device``, cached."""
+        key = torch.device(device)
+        if key not in self._fast_tables:
+            self._fast_tables[key] = {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in self._fast_host.items()
+            }
+        return self._fast_tables[key]
 
     def _as_tensor(self, audio) -> torch.Tensor:
         if isinstance(audio, torch.Tensor):
@@ -203,8 +229,10 @@ class MicroFrontendTorch:
 
     def base_frames(self, audio_int16) -> torch.Tensor:
         """(..., samples) int16 -> (..., F, C) int32 sqrt-filterbank
-        signal (uint32 values, all below 2^26)."""
+        signal (uint32 values, all below 2^26); float32 in fast mode."""
         audio = self._as_tensor(audio_int16)
+        if self.mode == "fast":
+            return micro_fast.base_frames_fast(audio, self)
         lead, t = audio.shape[:-1], audio.shape[-1]
         base = cuda_fft.stream_prefix(audio.reshape(-1, t), self)
         return base.reshape(*lead, *base.shape[-2:])
@@ -218,6 +246,18 @@ class MicroFrontendTorch:
         raw = cuda_frontend.stream_suffix(signal.reshape(n * f, c), n, f, f, self, scaled=False)
         return raw.reshape(signal.shape)
 
+    def nr_pcan_log(self, signal) -> torch.Tensor:
+        """Fast mode's suffix: (..., F, C) float32 sqrt-filterbank signal ->
+        (..., F, C) integer-valued float32 features, noise state restarting
+        per leading index. The recurrence is ``cuda_fast.noise_scan_f32``."""
+        signal = self._as_tensor(signal).to(torch.float32)
+        lead, (f, c) = signal.shape[:-2], signal.shape[-2:]
+        n = int(np.prod(lead))
+        rows = signal.reshape(n * f, c).contiguous()
+        est = cuda_fast.noise_scan_f32(rows, n, f, f, self)
+        raw = micro_fast.nr_pcan_log_fast(rows.view(n, f, c), est, self)
+        return raw.reshape(signal.shape)
+
     # -- public entry points ---------------------------------------------------
 
     def features_from_int16(self, audio_int16) -> torch.Tensor:
@@ -229,6 +269,8 @@ class MicroFrontendTorch:
         the JAX package gates its fused Pallas kernel. Both give ``==``
         features."""
         audio = self._as_int16(self._as_tensor(audio_int16))
+        if self.mode == "fast":  # never the fused kernel: it is exact mode's
+            return self.nr_pcan_log(self.base_frames(audio)) * cuda_frontend.FEATURE_SCALE
         lead, t = audio.shape[:-1], audio.shape[-1]
         nf = self.num_frames(t)
         if cuda_clip.fits(nf, self.num_channels):
@@ -268,6 +310,11 @@ class MicroFrontendTorch:
         w..w+F-1 of it with the noise state restarting at row w, like the
         reference's independent per-window to_micro_spectrogram calls."""
         base = self.base_frames(audio_int16)  # (T, C)
+        if self.mode == "fast":
+            f = self.clip_frames
+            est = cuda_fast.noise_scan_f32(base, num_windows, 1, f, self)
+            raw = micro_fast.nr_pcan_log_fast(micro_fast.windows_view(base, num_windows, 1, f), est, self)
+            return raw * cuda_frontend.FEATURE_SCALE
         return cuda_frontend.stream_suffix(
             base, num_windows, 1, self.clip_frames, self, scaled=True
         )

@@ -2,9 +2,9 @@
 
 Counterpart of ``multilingual_kws_tpu/train/evaluate.py``.
 ``evaluate_files_*`` featurize a list of wavs on the device (the fused
-``clip_features`` kernel on a card) and split prediction confidences by
-argmax against the target id; ``evaluate_fast_*`` sample up to N utterances
-per word from a data dir. ``predict_fn`` takes (B, 49, 40, 1) float32
+``clip_features`` kernel on a card, or a given ``frontend`` of either mode)
+and split prediction confidences by argmax against the target id;
+``evaluate_fast_*`` sample up to N utterances per word from a data dir. ``predict_fn`` takes (B, 49, 40, 1) float32
 features, a tensor on the frontend's device, and returns (B, C) softmax
 rows (a tensor or an array): ``FinetuneResult.predict_fn()`` is one.
 

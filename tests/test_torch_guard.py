@@ -19,6 +19,7 @@ import torch
 from multilingual_kws_tpu_torch.data import dataset
 from multilingual_kws_tpu_torch.models import kws_model
 from multilingual_kws_tpu_torch.ops import micro_torch
+from multilingual_kws_tpu_torch.probes import fft_cost, rates
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 from multilingual_kws_tpu_torch.stream import engine
 from multilingual_kws_tpu_torch.train import evaluate, finetune
@@ -77,6 +78,7 @@ _AUDIO = np.zeros(20000, np.float32)
 _SETTINGS = standard_microspeech_model_settings(3)
 ENTRY_POINTS = {
     "MicroFrontendTorch": lambda: micro_torch.MicroFrontendTorch(),
+    "MicroFrontendTorch_fast": lambda: micro_torch.MicroFrontendTorch(mode="fast"),
     "make_transfer_model": lambda: kws_model.make_transfer_model(),
     "stream_feature_chunks": lambda: next(engine.stream_feature_chunks(_AUDIO, 16000, _FLAGS)),
     "featurize_stream": lambda: engine.featurize_stream(_AUDIO, 16000, _FLAGS),
@@ -84,6 +86,8 @@ ENTRY_POINTS = {
     "transfer_learn": lambda: finetune.transfer_learn("x", [], [], []),
     "featurize_files": lambda: evaluate.featurize_files(["no_such.wav"]),
     "file2spec": lambda: dataset.file2spec(_SETTINGS, "no_such.wav"),
+    "measure_rates": lambda: rates.measure_rates(),
+    "fft_cost": lambda: fft_cost.fft_cost(),
 }
 
 
@@ -94,8 +98,9 @@ def test_entry_points_raise_without_a_card(no_card, name):
 
 
 def test_cpu_entry_points_run_without_a_card(no_card, tmp_path):
-    feats = micro_torch.MicroFrontendTorch(device="cpu").features(np.zeros(16000, np.float32))
-    assert tuple(feats.shape) == (49, 40)
+    for mode in ("exact", "fast"):
+        feats = micro_torch.MicroFrontendTorch(device="cpu", mode=mode).features(np.zeros(16000, np.float32))
+        assert tuple(feats.shape) == (49, 40)
     wav = tmp_path / "clip.wav"
     write_wav(wav, np.zeros(16000, np.float32))
     assert dataset.file2spec(_SETTINGS, wav, device="cpu").shape == (49, 40)
