@@ -6,8 +6,18 @@
 // ops/cuda_fft.py, ops/cuda_frontend.py and ops/cuda_clip.py (and so to the
 // JAX package and the golden features of the real op). The per-frame prefix
 // (prefix_frame, and within it the FFT and energies, fft_energies) and the
-// per-step suffix (suffix_step) are each written once and shared by the
-// kernels below.
+// suffix's two halves (noise_step, the serial noise estimate, and
+// suffix_pointwise, everything after it) are each written once and shared by
+// the kernels below.
+//
+// One warp per frame. prefix_frame and fft_energies run a frame's whole
+// 512-point real FFT inside one warp, in a warp-private WarpFrame of shared
+// memory: lanes exchange values through it between stages with __syncwarp,
+// so no block-wide barrier sits inside the prefix, and warps of one block
+// never wait for each other. The 256-point substate is stored padded (index
+// i at i + i/8), and each radix-4 stage hands its 64 butterflies to the 32
+// lanes in the order that keeps a stage's shared-memory accesses at one or
+// two ways per bank (the unpadded layout at stride m had up to eight).
 //
 // stream_prefix  replaces multilingual_kws_tpu/ops/pallas_fft.py::window_fft_energy
 //                (_window_fft_energy_kernel) and the filterbank + sqrt64_exact
@@ -17,12 +27,14 @@
 //   stages over the 256-point complex substate, then the real post-stage),
 //   uint32 energies, the exact 64-bit filterbank accumulate, Sqrt64, >>shift.
 //   Bound: integer operations (~28k per frame against 960 bytes of audio
-//   read and 160 bytes written). Design: 64 threads per frame, 4 frames per
-//   block; a frame's 256-point substate and its energies stay in shared
-//   memory, so nothing but the audio and the (F, 40) result touches device
-//   memory. Each thread owns one radix-4 butterfly per stage. The TPU's
-//   one-hot permutation matmuls and limb splits are gone: the digit-reversal
-//   permutation is an index computed per thread, products are 64-bit.
+//   read and 160 bytes written). Design: one warp per frame, eight frames
+//   per block, each warp on its own; a frame's substate and energies stay in
+//   shared memory, so nothing but the audio and the (F, 40) result touches
+//   device memory. The TPU's one-hot permutation matmuls and limb splits are
+//   gone: the digit-reversal permutation is an index computed per lane,
+//   products are 64-bit. The filterbank gives each channel four lanes (a
+//   quarter of its terms each, summed by shuffles), so all 32 lanes work in
+//   every round instead of 40 channels over 32 lanes in two rounds.
 //
 // stream_suffix  replaces multilingual_kws_tpu/ops/pallas_frontend.py::noise_estimate_scan_u32
 //                (_nr_kernel_u32), the pointwise stages of
@@ -41,14 +53,38 @@
 //
 // clip_features  replaces multilingual_kws_tpu/ops/pallas_fft.py::clip_frontend_features
 //                (_clip_frontend_full_kernel): the whole frontend of a clip.
-//   One block per clip. Phase 1 runs prefix_frame over the clip's frames,
-//   four at a time, into a (frames, channels) uint32 array in shared memory
-//   (7.8 KB at 49 frames); phase 2 gives one thread per channel, which runs
-//   the frames-step suffix with its noise state in a register and writes the
-//   features. One launch; the (B, 49, 40) sqrt-filterbank signal never
-//   touches device memory. Bound: integer operations (~1.48 M per 1 s clip,
-//   against 32 KB of audio in and 7.8 KB of features out). Phase 2 keeps
-//   only 40 of the block's 256 threads busy; it is ~7 % of the work.
+//   Bound: integer operations (~1.48 M per 1 s clip, against 32 KB of audio
+//   in and 7.8 KB of features out). What held the first design (one
+//   256-thread block per clip) back was latency, not work: at the
+//   fine-tune's 64 clips it filled 64 of 132 SMs; it walked the 49 frames
+//   four at a time, with six block barriers per round; and 40 of its 256
+//   threads ran the whole 49-step suffix serially, PCAN and log inside the
+//   dependent chain. Design now:
+//   - a thread block cluster of kClipCluster = 2 blocks per clip (128
+//     blocks at 64 clips), each block one warp per frame over its half of
+//     the frames (25 of 49; 13 warps, so two rounds), the (frames, channels)
+//     signal in its own shared memory;
+//   - after cluster.sync(), block r takes half of the channels: it reads
+//     their rows from its peer's shared memory (distributed shared memory,
+//     map_shared_rank), one thread per channel runs only the noise estimate
+//     est' = (u64(sig << sb) * sm + u64(est) * om) >> 14 down the frames
+//     into shared memory, loading each frame's signal a step ahead, and then
+//     all threads compute subtraction, PCAN, log and scale over the
+//     (frames, its channels) elements at once. The split is exact: each
+//     pointwise step depends only on (sig_t, est_t).
+//   The (B, 49, 40) sqrt-filterbank signal never touches device memory.
+//   Clusters of 3, 4 and 8 blocks, one block per clip, and 16 or 25 warps
+//   per block were measured too (PERF.md): larger clusters cost more in
+//   cluster scheduling and registers than their extra SMs gain, one block
+//   per clip leaves half the SMs idle at 64 clips, and wider blocks lower
+//   the blocks an SM holds at 2048 clips. Budget (-Xptxas -v, printed by
+//   chip_smoke.py at build): 48 registers (__launch_bounds__ with three
+//   blocks per SM, no spills) and 47 KB of dynamic shared memory per block
+//   at 49 frames (13 WarpFrames of 3.3 KB and the block's 25 x 40 rows;
+//   the suffix's (49, 20) signal and estimates reuse the WarpFrames'
+//   space). Longer clips, up to the 204 frames that take the kernel
+//   (ops/cuda_clip.py routes by the same bound), need more rows, and above
+//   48 KB the launch opts in to more shared memory.
 //
 // fft_energy     replaces multilingual_kws_tpu/ops/pallas_fft.py::kiss_fft_energy
 //                (_fft_energy_kernel): the FFT and energies alone, on rows that
@@ -57,9 +93,9 @@
 //   bin 128 from the post-stage's second write). It runs fft_energies, the
 //   same device code as stream_prefix and clip_features, so the three cannot
 //   drift. Bound: integer operations (~23k per row against 2 KB read and 1 KB
-//   written). Design: stream_prefix's, 64 threads per row, 4 rows per block,
-//   the substate and energies in shared memory. The TPU kernel's lane-reversal
-//   matmuls and 512-row padding are gone: a thread reads any index.
+//   written). Design: stream_prefix's, one warp per row, eight rows per
+//   block. The TPU kernel's lane-reversal matmuls and 512-row padding are
+//   gone: a lane reads any index.
 //
 // Tables (window, twiddles, filterbank, LUTs) are small int32 device arrays
 // owned by the Python frontend object and read through the read-only cache:
@@ -69,19 +105,24 @@
 // Plain C interface for ctypes: device pointers and the stream as integers;
 // each entry point returns the launch's cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreadsPerFrame = 64;  // one radix-4 butterfly each per stage
-constexpr int kFramesPerBlock = 4;
-constexpr int kPrefixThreads = kThreadsPerFrame * kFramesPerBlock;
-constexpr int kSub = 256;  // complex substate of the 512-point real FFT
+constexpr int kSub = 256;                  // complex substate of the 512-point real FFT
+constexpr int kPadded = kSub + kSub / 8;   // the substate padded: index i lives at i + i/8
+constexpr int kWarpsPerBlock = 8;          // stream_prefix and fft_energy: a frame (row) per warp
+constexpr int kPrefixThreads = 32 * kWarpsPerBlock;
 constexpr int kSuffixThreads = 256;
-// shared memory a clip_features block may hold for its (frames, channels)
-// base rows, beside the prefix's own 12 KB: the sum stays below the 48 KB a
-// block gets without an opt-in (ops/cuda_clip.py routes by the same bound)
+constexpr int kClipCluster = 2;            // clip_features: blocks per clip
+constexpr int kClipMaxWarps = 13;
+constexpr int kClipMinBlocks = 3;          // per SM: caps registers at 48 a thread
+// bytes of (frames, channels) int32 signal a clip may have to take
+// clip_features (ops/cuda_clip.py routes by the same bound)
 constexpr int kClipMaxBaseBytes = 32768;
 
 struct PrefixArgs {
@@ -95,11 +136,11 @@ struct PrefixArgs {
   const int* fb_wgt;
 };
 
-struct PrefixSmem {
-  int re[kFramesPerBlock][kSub];
-  int im[kFramesPerBlock][kSub];
-  uint32_t en[kFramesPerBlock][kSub + 1];
-  int max[kFramesPerBlock][kThreadsPerFrame / 32];
+// one warp's scratch for one frame's FFT
+struct WarpFrame {
+  int re[kPadded];
+  int im[kPadded];
+  uint32_t en[kSub + 1];
 };
 
 struct SuffixArgs {
@@ -111,6 +152,8 @@ struct SuffixArgs {
   const int* lut012;
   const int* log_lut;
 };
+
+__device__ __forceinline__ int pad(int i) { return i + (i >> 3); }
 
 __device__ __forceinline__ int sround(long long x) { return (int)((x + (1 << 14)) >> 15); }
 
@@ -141,133 +184,143 @@ __device__ __forceinline__ uint32_t sqrt64_exact(unsigned long long num) {
   return (uint32_t)(r + ((rem > r && r != cap) ? 1 : 0));
 }
 
-// The 512-point kiss FFT of one frame per group of kThreadsPerFrame threads,
-// from its input-permuted 256-point complex substate in re/im (shared
-// memory, written and synchronized by the caller): four radix-4 stages in
-// place, then the real post-stage and the uint32 energies of bins 0..256
-// into en. Thread t owns one butterfly per stage. Every thread of the block
-// must call it: it synchronizes the block.
-__device__ __forceinline__ void fft_energies(int* re, int* im, uint32_t* en, int t,
-                                             const PrefixArgs& a) {
+// The butterfly (0..63) that lane takes as its h-th (0, 1) of radix-4 stage
+// s. Any assignment is right; these keep each stage's accesses to the padded
+// substate at one or two ways per bank.
+__device__ __forceinline__ int butterfly_of(int s, int lane, int h) {
+  if (s == 1) return ((lane >> 1) << 2) | (h << 1) | (lane & 1);
+  if (s == 3) return lane + 32 * h;
+  return 2 * lane + h;
+}
+
+// The 512-point kiss FFT of one frame by one warp, from its input-permuted
+// 256-point complex substate in w.re/w.im (padded; written by the caller,
+// followed by __syncwarp): four radix-4 stages in place, then the real
+// post-stage and the uint32 energies of bins 0..256 into w.en. Every lane of
+// the warp must call it; it ends with __syncwarp.
+__device__ __forceinline__ void fft_energies(WarpFrame& w, int lane, const PrefixArgs& a) {
   // four radix-4 stages (fstride, m) = (64,1) (16,4) (4,16) (1,64)
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const int m = 1 << (2 * s);
     const int fstride = 64 >> (2 * s);
-    const int k = t % m;
-    const int b0 = (t / m) * 4 * m + k;
-    int xr[4], xi[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // C_FIXDIV by 4
-      xr[q] = sround((long long)re[b0 + q * m] * 8191);
-      xi[q] = sround((long long)im[b0 + q * m] * 8191);
+    for (int h = 0; h < 2; ++h) {
+      const int t = butterfly_of(s, lane, h);
+      const int k = t & (m - 1);
+      const int b0 = (t >> (2 * s)) * 4 * m + k;
+      int xr[4], xi[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // C_FIXDIV by 4
+        xr[q] = sround((long long)w.re[pad(b0 + q * m)] * 8191);
+        xi[q] = sround((long long)w.im[pad(b0 + q * m)] * 8191);
+      }
+      int s0r, s0i, s1r, s1i, s2r, s2i;
+      cmul(xr[1], xi[1], __ldg(a.tw_r + k * fstride), __ldg(a.tw_i + k * fstride), s0r, s0i);
+      cmul(xr[2], xi[2], __ldg(a.tw_r + 2 * k * fstride), __ldg(a.tw_i + 2 * k * fstride), s1r, s1i);
+      cmul(xr[3], xi[3], __ldg(a.tw_r + 3 * k * fstride), __ldg(a.tw_i + 3 * k * fstride), s2r, s2i);
+      const int s5r = xr[0] - s1r, s5i = xi[0] - s1i;
+      const int x0r = xr[0] + s1r, x0i = xi[0] + s1i;
+      const int s3r = s0r + s2r, s3i = s0i + s2i;
+      const int s4r = s0r - s2r, s4i = s0i - s2i;
+      w.re[pad(b0)] = x0r + s3r;
+      w.im[pad(b0)] = x0i + s3i;
+      w.re[pad(b0 + m)] = s5r + s4i;
+      w.im[pad(b0 + m)] = s5i - s4r;
+      w.re[pad(b0 + 2 * m)] = x0r - s3r;
+      w.im[pad(b0 + 2 * m)] = x0i - s3i;
+      w.re[pad(b0 + 3 * m)] = s5r - s4i;
+      w.im[pad(b0 + 3 * m)] = s5i + s4r;
     }
-    int s0r, s0i, s1r, s1i, s2r, s2i;
-    cmul(xr[1], xi[1], __ldg(a.tw_r + k * fstride), __ldg(a.tw_i + k * fstride), s0r, s0i);
-    cmul(xr[2], xi[2], __ldg(a.tw_r + 2 * k * fstride), __ldg(a.tw_i + 2 * k * fstride), s1r, s1i);
-    cmul(xr[3], xi[3], __ldg(a.tw_r + 3 * k * fstride), __ldg(a.tw_i + 3 * k * fstride), s2r, s2i);
-    const int s5r = xr[0] - s1r, s5i = xi[0] - s1i;
-    const int x0r = xr[0] + s1r, x0i = xi[0] + s1i;
-    const int s3r = s0r + s2r, s3i = s0i + s2i;
-    const int s4r = s0r - s2r, s4i = s0i - s2i;
-    re[b0] = x0r + s3r;
-    im[b0] = x0i + s3i;
-    re[b0 + m] = s5r + s4i;
-    im[b0 + m] = s5i - s4r;
-    re[b0 + 2 * m] = x0r - s3r;
-    im[b0 + 2 * m] = x0i - s3i;
-    re[b0 + 3 * m] = s5r - s4i;
-    im[b0 + 3 * m] = s5i + s4r;
-    __syncthreads();
+    __syncwarp();
   }
 
-  // the real post-stage and uint32 energies: thread t takes k = t+1 and t+65
+  // the real post-stage and uint32 energies: lane takes k = lane+1+32h
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int k = t + 1 + kThreadsPerFrame * h;
-    const int fpk_r = sround((long long)re[k] * 16383), fpk_i = sround((long long)im[k] * 16383);
-    const int fpnk_r = sround((long long)re[kSub - k] * 16383);
-    const int fpnk_i = sround(-(long long)im[kSub - k] * 16383);
+  for (int h = 0; h < kSub / 2 / 32; ++h) {
+    const int k = lane + 1 + 32 * h;
+    const int fpk_r = sround((long long)w.re[pad(k)] * 16383);
+    const int fpk_i = sround((long long)w.im[pad(k)] * 16383);
+    const int fpnk_r = sround((long long)w.re[pad(kSub - k)] * 16383);
+    const int fpnk_i = sround(-(long long)w.im[pad(kSub - k)] * 16383);
     const int f1k_r = fpk_r + fpnk_r, f1k_i = fpk_i + fpnk_i;
     const int f2k_r = fpk_r - fpnk_r, f2k_i = fpk_i - fpnk_i;
     int twr, twi;
     cmul(f2k_r, f2k_i, __ldg(a.stw_r + k - 1), __ldg(a.stw_i + k - 1), twr, twi);
     // bin 128 is written twice by the C loop; its second write wins
-    if (k < kSub / 2) en[k] = energy((f1k_r + twr) >> 1, (f1k_i + twi) >> 1);
-    en[kSub - k] = energy((f1k_r - twr) >> 1, (twi - f1k_i) >> 1);
+    if (k < kSub / 2) w.en[k] = energy((f1k_r + twr) >> 1, (f1k_i + twi) >> 1);
+    w.en[kSub - k] = energy((f1k_r - twr) >> 1, (twi - f1k_i) >> 1);
   }
-  if (t == 0) {
-    const int tdc_r = sround((long long)re[0] * 16383), tdc_i = sround((long long)im[0] * 16383);
-    en[0] = energy(tdc_r + tdc_i, 0);
-    en[kSub] = energy(tdc_r - tdc_i, 0);
+  if (lane == 0) {
+    const int tdc_r = sround((long long)w.re[0] * 16383), tdc_i = sround((long long)w.im[0] * 16383);
+    w.en[0] = energy(tdc_r + tdc_i, 0);
+    w.en[kSub] = energy(tdc_r - tdc_i, 0);
   }
-  __syncthreads();
+  __syncwarp();
 }
 
-// The prefix of one frame per group of kThreadsPerFrame threads: group
-// threadIdx.x / kThreadsPerFrame takes the frame whose first sample is x and,
-// when valid, writes its channels to out[0 .. channels). Every thread of the
-// block must call it: it synchronizes the block.
-__device__ __forceinline__ void prefix_frame(const int16_t* __restrict__ x, bool valid,
-                                             PrefixSmem& sm, const PrefixArgs& a,
-                                             int* __restrict__ out) {
-  const int lf = threadIdx.x / kThreadsPerFrame;
-  const int t = threadIdx.x % kThreadsPerFrame;
-  int* re = sm.re[lf];
-  int* im = sm.im[lf];
-  uint32_t* en = sm.en[lf];
-
-  // 1. window (>>12, arithmetic) of complex points n = t + 64 j, i.e. samples
-  //    2n and 2n+1; the FFT input beyond the window is zero.
-  int wr[4], wi[4];
+// The prefix of one frame, whose first sample is x, by one warp, in its
+// WarpFrame w: writes the frame's channels to out[0 .. channels). Every lane
+// of the warp must call it.
+__device__ __forceinline__ void prefix_frame(const int16_t* __restrict__ x, WarpFrame& w, int lane,
+                                             const PrefixArgs& a, int* __restrict__ out) {
+  // 1. window (>>12, arithmetic) of complex points n = lane + 32 j, i.e.
+  //    samples 2n and 2n+1; the FFT input beyond the window is zero.
+  int wr[kSub / 32], wi[kSub / 32];
   int mx = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int s0 = 2 * (t + kThreadsPerFrame * j);
-    wr[j] = (valid && s0 < a.win) ? ((int)x[s0] * __ldg(a.window + s0)) >> 12 : 0;
-    wi[j] = (valid && s0 + 1 < a.win) ? ((int)x[s0 + 1] * __ldg(a.window + s0 + 1)) >> 12 : 0;
+  for (int j = 0; j < kSub / 32; ++j) {
+    const int s0 = 2 * (lane + 32 * j);
+    wr[j] = s0 < a.win ? ((int)x[s0] * __ldg(a.window + s0)) >> 12 : 0;
+    wi[j] = s0 + 1 < a.win ? ((int)x[s0 + 1] * __ldg(a.window + s0 + 1)) >> 12 : 0;
     mx = max(mx, max(abs(wr[j]), abs(wi[j])));
   }
-  // 2. input_shift from the frame's max |x| (two warps per frame)
+  // 2. input_shift from the frame's max |x|
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((t & 31) == 0) sm.max[lf][t >> 5] = mx;
-  __syncthreads();
-  mx = max(sm.max[lf][0], sm.max[lf][1]);
   const int msb = mx ? 32 - __clz(mx) : 0;
   const int shift = min(max(15 - msb, 0), 15);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int p = digit_reverse4(t + kThreadsPerFrame * j);
-    re[p] = (int)((uint32_t)wr[j] << shift);
-    im[p] = (int)((uint32_t)wi[j] << shift);
+  for (int j = 0; j < kSub / 32; ++j) {
+    const int p = pad(digit_reverse4(lane + 32 * j));
+    w.re[p] = (int)((uint32_t)wr[j] << shift);
+    w.im[p] = (int)((uint32_t)wi[j] << shift);
   }
-  __syncthreads();
+  __syncwarp();
 
-  fft_energies(re, im, en, t, a);
+  fft_energies(w, lane, a);
 
-  // 3. exact 64-bit filterbank accumulate, Sqrt64, >>shift
-  if (valid) {
-    for (int c = t; c < a.channels; c += kThreadsPerFrame) {
-      unsigned long long acc = 0;
-      for (int j = 0; j < a.fb_width; ++j) {
+  // 3. exact 64-bit filterbank accumulate, Sqrt64, >>shift: four lanes per
+  //    channel, each a quarter of its terms (integer sums: any order is exact)
+  const int quarter = lane & 3;
+  const int per = (a.fb_width + 3) / 4;
+  const int j0 = quarter * per, j1 = min(j0 + per, a.fb_width);
+  for (int c0 = 0; c0 < a.channels; c0 += 8) {
+    const int c = c0 + (lane >> 2);
+    unsigned long long acc = 0;
+    if (c < a.channels) {
+#pragma unroll 4
+      for (int j = j0; j < j1; ++j) {
         const int e = c * a.fb_width + j;
-        acc += (unsigned long long)en[__ldg(a.fb_idx + e)] * (unsigned long long)__ldg(a.fb_wgt + e);
+        acc += (unsigned long long)w.en[__ldg(a.fb_idx + e)] * (unsigned long long)__ldg(a.fb_wgt + e);
       }
-      out[c] = (int)(sqrt64_exact(acc) >> shift);
     }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (quarter == 0 && c < a.channels) out[c] = (int)(sqrt64_exact(acc) >> shift);
   }
 }
 
 __global__ void __launch_bounds__(kPrefixThreads) stream_prefix_kernel(
     const int16_t* __restrict__ audio, int batch, long long samples, int frames, PrefixArgs a,
     int* __restrict__ out) {
-  __shared__ PrefixSmem sm;
-  const long long g = (long long)blockIdx.x * kFramesPerBlock + threadIdx.x / kThreadsPerFrame;
-  const bool valid = g < (long long)batch * frames;  // frame over the batch
-  const long long clip = valid ? g / frames : 0;
-  const long long frame = valid ? g % frames : 0;
-  prefix_frame(audio + clip * samples + frame * a.step, valid, sm, a, out + g * a.channels);
+  __shared__ WarpFrame wf[kWarpsPerBlock];
+  const int warp = threadIdx.x / 32;
+  const long long g = (long long)blockIdx.x * kWarpsPerBlock + warp;  // frame over the batch
+  if (g >= (long long)batch * frames) return;  // the whole warp: no block barrier follows
+  const long long clip = g / frames, frame = g % frames;
+  prefix_frame(audio + clip * samples + frame * a.step, wf[warp], threadIdx.x % 32, a,
+               out + g * a.channels);
 }
 
 // WideDynamicFunction (pcan_gain_control.c) of a uint32 estimate
@@ -301,14 +354,21 @@ __device__ __forceinline__ uint32_t log_scale(uint32_t x, int correction_bits, i
   return min(logged, 0xFFFFu);
 }
 
-// One step of the suffix for one channel: the noise estimate (carried in
-// est), noise subtraction, PCAN gain and the integer log (or the 16-bit cap).
-__device__ __forceinline__ uint32_t suffix_step(uint32_t sig, uint32_t& est,
-                                                unsigned long long smc, unsigned long long omc,
-                                                const SuffixArgs& a) {
-  // noise estimate: est' = (u64(sig << sb) * sm + u64(est) * om) >> 14
-  const uint32_t su = sig << a.smoothing_bits;
+// One step of the noise estimate for one channel, carried in est:
+// est' = (u64(sig << sb) * sm + u64(est) * om) >> 14. The suffix's only
+// serial part.
+__device__ __forceinline__ void noise_step(uint32_t sig, uint32_t& est, unsigned long long smc,
+                                           unsigned long long omc, int smoothing_bits) {
+  const uint32_t su = sig << smoothing_bits;
   est = (uint32_t)(((unsigned long long)su * smc + (unsigned long long)est * omc) >> 14);
+}
+
+// The rest of the suffix at one (frame, channel), from the signal and that
+// frame's noise estimate alone: noise subtraction, PCAN gain and the integer
+// log (or the 16-bit cap).
+__device__ __forceinline__ uint32_t suffix_pointwise(uint32_t sig, uint32_t est,
+                                                     const SuffixArgs& a) {
+  const uint32_t su = sig << a.smoothing_bits;
   const uint32_t sub = (su - min(est, su)) >> a.smoothing_bits;
   const uint32_t floor_ =
       (uint32_t)(((unsigned long long)sig * (uint32_t)a.min_signal_remaining) >> 14);
@@ -347,8 +407,8 @@ __global__ void __launch_bounds__(kSuffixThreads) stream_suffix_kernel(
   uint32_t est = 0;
   for (int t = 0; t < frames; ++t) {
     const uint32_t sig = (uint32_t)__ldg(row + (long long)t * channels);
-    store_feature(out, out0 + (long long)t * channels, suffix_step(sig, est, smc, omc, a),
-                  out_is_float);
+    noise_step(sig, est, smc, omc, a.smoothing_bits);
+    store_feature(out, out0 + (long long)t * channels, suffix_pointwise(sig, est, a), out_is_float);
   }
 }
 
@@ -356,49 +416,121 @@ __global__ void __launch_bounds__(kSuffixThreads) stream_suffix_kernel(
 __global__ void __launch_bounds__(kPrefixThreads) fft_energy_kernel(
     const int* __restrict__ xr, const int* __restrict__ xi, long long rows, PrefixArgs a,
     int* __restrict__ out) {
-  __shared__ PrefixSmem sm;
-  const int lf = threadIdx.x / kThreadsPerFrame;
-  const int t = threadIdx.x % kThreadsPerFrame;
-  const long long row = (long long)blockIdx.x * kFramesPerBlock + lf;
-  const bool valid = row < rows;
+  __shared__ WarpFrame wf[kWarpsPerBlock];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= rows) return;  // the whole warp: no block barrier follows
+  WarpFrame& w = wf[warp];
 #pragma unroll
-  for (int j = 0; j < kSub / kThreadsPerFrame; ++j) {
-    const int n = t + kThreadsPerFrame * j;
-    sm.re[lf][n] = valid ? __ldg(xr + row * kSub + n) : 0;
-    sm.im[lf][n] = valid ? __ldg(xi + row * kSub + n) : 0;
+  for (int j = 0; j < kSub / 32; ++j) {
+    const int n = lane + 32 * j;
+    w.re[pad(n)] = __ldg(xr + row * kSub + n);
+    w.im[pad(n)] = __ldg(xi + row * kSub + n);
   }
-  __syncthreads();
-  fft_energies(sm.re[lf], sm.im[lf], sm.en[lf], t, a);
-  if (valid) {
-    for (int k = t; k <= kSub; k += kThreadsPerFrame) out[row * (kSub + 1) + k] = (int)sm.en[lf][k];
-  }
+  __syncwarp();
+  fft_energies(w, lane, a);
+  for (int k = lane; k <= kSub; k += 32) out[row * (kSub + 1) + k] = (int)w.en[k];
 }
 
-__global__ void __launch_bounds__(kPrefixThreads) clip_features_kernel(
-    const int16_t* __restrict__ audio, long long samples, int frames, PrefixArgs pa, SuffixArgs sa,
-    void* __restrict__ out, int out_is_float) {
-  __shared__ PrefixSmem sm;
-  extern __shared__ int s_base[];  // (frames, channels) sqrt-filterbank signal of this clip
-  const long long clip = blockIdx.x;
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// shared-memory layout of a clip_features block: its frames' (per, channels)
+// int32 rows, then either its warps' WarpFrames (the prefix) or, reusing
+// that space, the suffix's (frames, q) signal and estimates
+struct ClipLayout {
+  int per, q, warps;
+  size_t rows_bytes, bytes;
+};
+
+__host__ __device__ inline ClipLayout clip_layout(int frames, int channels) {
+  ClipLayout l;
+  l.per = (frames + kClipCluster - 1) / kClipCluster;
+  l.q = (channels + kClipCluster - 1) / kClipCluster;
+  l.warps = l.per < kClipMaxWarps ? l.per : kClipMaxWarps;
+  l.rows_bytes = ((size_t)l.per * channels * sizeof(int) + 15) / 16 * 16;
+  const size_t prefix = (size_t)l.warps * sizeof(WarpFrame);
+  const size_t suffix = (size_t)frames * l.q * 2 * sizeof(uint32_t);
+  l.bytes = l.rows_bytes + (prefix > suffix ? prefix : suffix);
+  return l;
+}
+
+__global__ void __cluster_dims__(kClipCluster, 1, 1) __launch_bounds__(32 * kClipMaxWarps, kClipMinBlocks)
+    clip_features_kernel(const int16_t* __restrict__ audio, long long samples, int frames,
+                         PrefixArgs pa, SuffixArgs sa, void* __restrict__ out, int out_is_float) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long clip = blockIdx.x / kClipCluster;
+  const int channels = pa.channels;
+  const ClipLayout l = clip_layout(frames, channels);
+  int* rows = reinterpret_cast<int*>(smem);  // (per, channels): frames rank*per ..
+  WarpFrame* wf = reinterpret_cast<WarpFrame*>(smem + l.rows_bytes);
+
+  // phase 1: the prefix of this block's frames, one warp per frame
   const int16_t* x = audio + clip * samples;
-  const int lf = threadIdx.x / kThreadsPerFrame;
-  // phase 1: the prefix, four frames at a time, into shared memory
-  for (int f0 = 0; f0 < frames; f0 += kFramesPerBlock) {
-    const int f = min(f0 + lf, frames - 1);
-    prefix_frame(x + (long long)f * pa.step, f0 + lf < frames, sm, pa, s_base + f * pa.channels);
+  const int f0 = rank * l.per, f1 = min(f0 + l.per, frames);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int f = f0 + warp; f < f1; f += l.warps) {
+    prefix_frame(x + (long long)f * pa.step, wf[warp], lane, pa, rows + (f - f0) * channels);
   }
-  __syncthreads();
-  // phase 2: one thread per channel carries the noise state down the frames
-  for (int c = threadIdx.x; c < pa.channels; c += blockDim.x) {
-    const unsigned long long smc = (uint32_t)__ldg(sa.sm + c), omc = (uint32_t)__ldg(sa.om + c);
-    const long long out0 = clip * frames * pa.channels + c;
-    uint32_t est = 0;
-    for (int t = 0; t < frames; ++t) {
-      const uint32_t sig = (uint32_t)s_base[t * pa.channels + c];
-      store_feature(out, out0 + (long long)t * pa.channels, suffix_step(sig, est, smc, omc, sa),
-                    out_is_float);
+  cluster.sync();
+
+  // phase 2: this block's channels c0 .. c0+nc-1 over all frames. Gather
+  // their signal from the cluster's rows into the space the WarpFrames held.
+  // Element (t, c) of the (frames, nc) slice is i = t * nc + c; a thread
+  // steps i by blockDim.x with the carry written out, not divided.
+  const int c0 = rank * l.q, nc = max(0, min(c0 + l.q, channels) - c0);
+  uint32_t* sig = reinterpret_cast<uint32_t*>(wf);  // (frames, nc)
+  uint32_t* est = sig + frames * l.q;
+  const int dt = nc ? blockDim.x / nc : 0, dc = nc ? blockDim.x % nc : 0;
+  if (nc) {
+    int t = threadIdx.x / nc, c = threadIdx.x % nc;
+    while (t < frames) {
+      const int owner = t / l.per;
+      const int* peer = cluster.map_shared_rank(rows, owner);
+      sig[t * nc + c] = (uint32_t)peer[(t - owner * l.per) * channels + c0 + c];
+      t += dt;
+      c += dc;
+      if (c >= nc) c -= nc, ++t;
     }
   }
+  __syncthreads();
+  cluster_arrive();  // done with the peers' rows; wait for theirs before leaving
+
+  // the noise estimate: one thread per channel, the only serial chain (the
+  // next frame's signal is loaded ahead of the step that needs it)
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    const unsigned long long smc = (uint32_t)__ldg(sa.sm + c0 + c);
+    const unsigned long long omc = (uint32_t)__ldg(sa.om + c0 + c);
+    uint32_t e = 0, next = sig[c];
+    for (int t = 0; t < frames; ++t) {
+      const uint32_t cur = next;
+      if (t + 1 < frames) next = sig[(t + 1) * nc + c];
+      noise_step(cur, e, smc, omc, sa.smoothing_bits);
+      est[t * nc + c] = e;
+    }
+  }
+  __syncthreads();
+  // subtraction, PCAN, log and scale, every element at once
+  if (nc) {
+    int t = threadIdx.x / nc, c = threadIdx.x % nc;
+    while (t < frames) {
+      const int i = t * nc + c;
+      store_feature(out, (clip * frames + t) * channels + c0 + c,
+                    suffix_pointwise(sig[i], est[i], sa), out_is_float);
+      t += dt;
+      c += dc;
+      if (c >= nc) c -= nc, ++t;
+    }
+  }
+  cluster_wait();
 }
 
 PrefixArgs prefix_args(int win, int step, int channels, int fb_width, const int* window,
@@ -423,7 +555,7 @@ extern "C" int kws_stream_prefix(const int16_t* audio, int batch, long long samp
                                  const int* stw_i, const int* fb_idx, const int* fb_wgt, int* out,
                                  void* stream) {
   const long long total = (long long)batch * frames;
-  const dim3 grid((unsigned)((total + kFramesPerBlock - 1) / kFramesPerBlock));
+  const dim3 grid((unsigned)((total + kWarpsPerBlock - 1) / kWarpsPerBlock));
   stream_prefix_kernel<<<grid, kPrefixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       audio, batch, samples, frames,
       prefix_args(win, step, channels, fb_width, window, tw_r, tw_i, stw_r, stw_i, fb_idx, fb_wgt),
@@ -456,9 +588,21 @@ extern "C" int kws_clip_features(const int16_t* audio, int batch, long long samp
                                  int scale_shift, const int* sm, const int* om,
                                  const int* wdf_rows, const int* lut012, const int* log_lut,
                                  void* out, int out_is_float, void* stream) {
-  const size_t base_bytes = (size_t)frames * channels * sizeof(int);
-  if (base_bytes > (size_t)kClipMaxBaseBytes) return (int)cudaErrorInvalidValue;
-  clip_features_kernel<<<batch, kPrefixThreads, base_bytes, static_cast<cudaStream_t>(stream)>>>(
+  if (frames <= 0 || (size_t)frames * channels * sizeof(int) > (size_t)kClipMaxBaseBytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ClipLayout l = clip_layout(frames, channels);
+  // above the 48 KB a block gets without it, opt in to more shared memory
+  // (once per size: the attribute persists)
+  static size_t opted = 48 * 1024;
+  if (l.bytes > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        clip_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = l.bytes;
+  }
+  const dim3 grid((unsigned)batch * kClipCluster);
+  clip_features_kernel<<<grid, 32 * l.warps, l.bytes, static_cast<cudaStream_t>(stream)>>>(
       audio, samples, frames,
       prefix_args(win, step, channels, fb_width, window, tw_r, tw_i, stw_r, stw_i, fb_idx, fb_wgt),
       suffix_args(smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log,
@@ -470,7 +614,7 @@ extern "C" int kws_clip_features(const int16_t* audio, int batch, long long samp
 extern "C" int kws_fft_energy(const int* xr, const int* xi, long long rows, const int* tw_r,
                               const int* tw_i, const int* stw_r, const int* stw_i, int* out,
                               void* stream) {
-  const dim3 grid((unsigned)((rows + kFramesPerBlock - 1) / kFramesPerBlock));
+  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
   fft_energy_kernel<<<grid, kPrefixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       xr, xi, rows,
       prefix_args(0, 0, 0, 0, nullptr, tw_r, tw_i, stw_r, stw_i, nullptr, nullptr), out);

@@ -14,10 +14,19 @@ clip's (F, C) sqrt-filterbank signal in shared memory between the two.
 CPU tensor it runs ``clip_features_plain``.
 
 On the card the kernel is bound by integer operations (~1.48 M per 1 s clip
-against 40 KB in and out). One block per clip: 256 threads run the prefix
-four frames at a time, then one thread per channel carries the noise state
-down the frames; the source note in ``csrc/frontend.cu`` has the rest.
-Only clips whose (F, C) signal fits the block's shared memory take it
+against 40 KB in and out). Its first design, one 256-thread block per clip,
+was held back by latency: 64 blocks on 132 SMs at the fine-tune's 64 clips,
+block barriers inside the prefix, and the whole suffix serial on 40
+threads. It now spreads each clip over a thread block cluster of two
+blocks (128 blocks at 64 clips): each block runs half of the frames, one
+warp per frame with no block barrier inside the prefix; after a cluster
+barrier each block takes half of the channels, reads their rows from its
+peer's shared memory, runs only the serial noise estimate one thread per
+channel, then the pointwise rest (subtraction, PCAN, log, scale) on
+every element at once. ``clip_features_plain`` computes in the same order
+(``noise_estimate_chain_plain``, then ``suffix_pointwise_plain``). The
+source note in ``csrc/frontend.cu`` has the shared-memory and register
+budget. Only clips whose (F, C) signal fits ``MAX_BASE_BYTES`` take it
 (``fits``): F <= 204 at 40 channels, about 4 s of audio.
 """
 
@@ -27,10 +36,10 @@ import torch
 
 from . import _build
 from .cuda_fft import stream_prefix_plain
-from .cuda_frontend import stream_suffix_plain
+from .cuda_frontend import noise_estimate_chain_plain, scale_features, suffix_pointwise_plain
 
-# bytes of (F, C) int32 signal a block may hold (kClipMaxBaseBytes in
-# csrc/frontend.cu)
+# bytes of (F, C) int32 signal a clip may have to take the kernel
+# (kClipMaxBaseBytes in csrc/frontend.cu)
 MAX_BASE_BYTES = 32768
 
 
@@ -40,11 +49,11 @@ def fits(frames: int, channels: int) -> bool:
 
 
 def clip_features_plain(audio: torch.Tensor, fe, scaled: bool = True) -> torch.Tensor:
-    """Plain version: the prefix, then the suffix with one window per clip."""
-    base = stream_prefix_plain(audio, fe)  # (B, F, C)
-    b, f, c = base.shape
-    out = stream_suffix_plain(base.reshape(b * f, c), b, f, f, fe, scaled=scaled)
-    return out.reshape(b, f, c)
+    """Plain version, in the kernel's order: the prefix of every frame, the
+    noise estimate down each channel, then the pointwise rest."""
+    x = stream_prefix_plain(audio, fe).to(torch.int64)  # (B, F, C)
+    est = noise_estimate_chain_plain(x, fe)
+    return scale_features(suffix_pointwise_plain(x, est, fe), scaled)
 
 
 def clip_features(audio: torch.Tensor, fe, scaled: bool = True) -> torch.Tensor:
@@ -68,7 +77,7 @@ def clip_features(audio: torch.Tensor, fe, scaled: bool = True) -> torch.Tensor:
     if out.numel() == 0:
         return out
     if not fits(nf, c):
-        raise ValueError(f"clip_features: {nf} frames x {c} channels exceed the block's shared memory")
+        raise ValueError(f"clip_features: {nf} frames x {c} channels exceed the kernel's {MAX_BASE_BYTES} bytes")
     if fe.window_size > 512 or fe.window_size <= 256:
         raise ValueError(f"clip_features is built for a 512-point FFT, window {fe.window_size}")
     tb = fe.tables(audio.device, torch.int32)

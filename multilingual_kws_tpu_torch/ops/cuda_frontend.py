@@ -29,20 +29,39 @@ from . import micro_int as mi
 FEATURE_SCALE = 10.0 / 256.0  # reference to_micro_spectrogram output scale
 
 
-def nr_pcan_log_plain(x: torch.Tensor, fe) -> torch.Tensor:
-    """(W, F, C) sqrt-filterbank signal -> (W, F, C) int64 integer features."""
+def noise_estimate_chain_plain(x: torch.Tensor, fe) -> torch.Tensor:
+    """(..., F, C) int64 signal -> (..., F, C) int64 noise estimate after each
+    frame, from 0: the suffix's only serial part (``noise_step`` in
+    ``csrc/frontend.cu``)."""
     tb = fe.tables(x.device)
-    x = x.to(torch.int64).movedim(-2, 0)  # (F, W, C)
-    est = mi.noise_estimate_scan_u32(x, tb["sm"], tb["om"], fe.smoothing_bits)
+    est = mi.noise_estimate_scan_u32(x.movedim(-2, 0), tb["sm"], tb["om"], fe.smoothing_bits)
+    return est.movedim(0, -2)
+
+
+def suffix_pointwise_plain(x: torch.Tensor, est: torch.Tensor, fe) -> torch.Tensor:
+    """(..., F, C) int64 signal and its noise estimate -> int64 integer
+    features: noise subtraction, PCAN gain and log (or the 16-bit cap), each
+    element from its own (signal, estimate) (``suffix_pointwise`` in
+    ``csrc/frontend.cu``)."""
+    tb = fe.tables(x.device)
     out = mi.nr_subtract(x, est, fe.min_signal_remaining, fe.smoothing_bits)
     if fe.enable_pcan:
         gain = mi.wide_dynamic_function(est, tb["wdf_rows"], tb["lut012"])
         out = mi.pcan_gain(out, gain, fe.snr_shift)
     if fe.enable_log:
-        out = mi.log_scale_int(out, fe.correction_bits, fe.scale_shift, tb["log_lut"])
-    else:
-        out = out.clamp(max=0xFFFF)
-    return out.movedim(0, -2)
+        return mi.log_scale_int(out, fe.correction_bits, fe.scale_shift, tb["log_lut"])
+    return out.clamp(max=0xFFFF)
+
+
+def nr_pcan_log_plain(x: torch.Tensor, fe) -> torch.Tensor:
+    """(W, F, C) sqrt-filterbank signal -> (W, F, C) int64 integer features."""
+    x = x.to(torch.int64)
+    return suffix_pointwise_plain(x, noise_estimate_chain_plain(x, fe), fe)
+
+
+def scale_features(raw: torch.Tensor, scaled: bool) -> torch.Tensor:
+    """int64 integer features -> float32 on the 10/256 scale, or int32."""
+    return raw.to(torch.float32) * FEATURE_SCALE if scaled else raw.to(torch.int32)
 
 
 def stream_suffix_plain(base, num_windows: int, stride: int, frames: int, fe, scaled: bool = True):
@@ -52,10 +71,7 @@ def stream_suffix_plain(base, num_windows: int, stride: int, frames: int, fe, sc
         torch.arange(num_windows, device=base.device)[:, None] * stride
         + torch.arange(frames, device=base.device)[None, :]
     )
-    raw = nr_pcan_log_plain(base[idx], fe)
-    if scaled:
-        return raw.to(torch.float32) * FEATURE_SCALE
-    return raw.to(torch.int32)
+    return scale_features(nr_pcan_log_plain(base[idx], fe), scaled)
 
 
 def stream_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int, fe, scaled: bool = True):

@@ -8,7 +8,9 @@
   held to the tolerance the JAX package already grants its own kernel
   against its XLA path (tests/test_pallas_augment.py): |diff| <= 1 int16
   step on fewer than 1e-4 of the samples, as the two RMS sums may round in
-  another order;
+  another order. The kernel's own sum orders (one block per clip, or a
+  cluster of blocks whose partial sums are added in rank order) are
+  emulated in numpy and held to the same bound;
 - ``apply_spec_masks`` given JAX's SpecAugment draws: ``==``;
 - the host draws (``_host_train_draw``, ``host_train_indices``) are the
   JAX package's, line for line: identical for one seed;
@@ -88,6 +90,76 @@ def test_augment_matches_pallas_kernel(b, max_shift, seed, key):
     assert got.dtype == np.int16 and got.shape == (b, t)
     got = got.astype(np.int32)
     unmixed = is_sil | (np.asarray(volume) == 0)
+    assert unmixed.any() and (~unmixed).any()
+    np.testing.assert_array_equal(got[unmixed], want[unmixed])
+    diff = np.abs(got - want)
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-4, f"{(diff > 0).sum()} samples differ"
+
+
+def _kernel_order_sum(sq, threads, blocks):
+    """Row sums of float32 ``sq`` (B, t) in ``csrc/augment.cu``'s order: block
+    r of ``blocks`` takes the r-th contiguous share of the row, thread i its
+    samples i, i + threads, ... in turn, then a shuffle tree in each warp,
+    the warps in order, and the blocks in rank order; one float32 rounding
+    per addition."""
+    b, t = sq.shape
+    span = -(-t // blocks)
+    total = np.zeros(b, np.float32)
+    for r in range(blocks):
+        seg = sq[:, r * span : min((r + 1) * span, t)]
+        per = -(-seg.shape[1] // threads)
+        lanes = np.zeros((b, per * threads), np.float32)
+        lanes[:, : seg.shape[1]] = seg
+        acc = np.zeros((b, threads), np.float32)
+        for k in range(per):
+            acc = acc + lanes[:, k * threads : (k + 1) * threads]
+        warps = acc.reshape(b, threads // 32, 32)
+        for off in (16, 8, 4, 2, 1):
+            warps = warps + warps[..., np.arange(32) ^ off]
+        block = np.zeros(b, np.float32)
+        for w in range(threads // 32):
+            block = block + warps[:, w, 0]
+        total = total + block
+    return total
+
+
+def _kernel_order_augment(fg16, is_sil, bank, draws, threads, blocks):
+    """The kernel's arithmetic in numpy float32: the shift and the crop, the
+    two sums of squares in the kernel's order, the gain and the int16 mix."""
+    shifts, idx, off, sil_vol, volume = (np.asarray(a) for a in draws)
+    b, t = fg16.shape
+    j = np.arange(t)
+    k = j[None, :] - shifts[:, None]
+    fg = np.where((k >= 0) & (k < t), fg16[np.arange(b)[:, None], np.clip(k, 0, t - 1)], 0)
+    fg = fg.astype(np.float32) * np.float32(1 / 32768)
+    col = off[:, None] + j[None, :]
+    bg = np.where(col < bank.shape[1], bank[idx[:, None], np.clip(col, 0, bank.shape[1] - 1)], 0)
+    bg = bg.astype(np.float32)
+    inv_t = np.float32(1 / t)
+    fg_rms = np.sqrt(_kernel_order_sum(fg * fg, threads, blocks) * inv_t)
+    bg_rms = np.sqrt(_kernel_order_sum(bg * bg, threads, blocks) * inv_t)
+    scaling = np.where(bg_rms > 0, fg_rms / np.maximum(bg_rms, np.float32(1e-30)), np.float32(0))
+    gain = (scaling * volume.astype(np.float32))[:, None]
+    mixed = np.clip(fg + bg * gain, np.float32(-1), np.float32(1))
+    wav = np.where(is_sil[:, None], bg * sil_vol.astype(np.float32)[:, None], mixed)
+    return np.clip(np.trunc(wav * np.float32(32768)), -32768, 32767).astype(np.int32)
+
+
+@pytest.mark.parametrize("threads,blocks", [(512, 1), (1024, 2), (1024, 5), (1024, 8)])
+def test_kernel_sum_order_within_bound(threads, blocks):
+    """Each launch shape the kernel takes (one 512-thread block per clip;
+    clusters of 1024-thread blocks) sums the RMS terms in an order whose
+    result stays within the stated bound of the Pallas kernel."""
+    fg16, is_sil, bank, sizes = _fixture(b=24, seed=8)
+    t = fg16.shape[1]
+    jparams = JaxAugmentParams(time_shift_samples=1600)
+    draws = draw_augment_params(jax.random.PRNGKey(11), 24, t, bank.shape[0], jnp.asarray(sizes), jparams)
+    bgw = gather_bg_window(jnp.asarray(bank), draws[1], draws[2], t)
+    si, sf = pack_scalar_rows(*(draws[i] for i in (0, 2, 3, 4)), jnp.asarray(is_sil), 1600)
+    want = np.asarray(augment_kernel_call(jnp.asarray(fg16, jnp.int32), bgw, si, sf, max_shift=1600, interpret=True))
+    got = _kernel_order_augment(fg16, is_sil, np.asarray(bank), draws, threads, blocks)
+    unmixed = is_sil | (np.asarray(draws[4]) == 0)
     assert unmixed.any() and (~unmixed).any()
     np.testing.assert_array_equal(got[unmixed], want[unmixed])
     diff = np.abs(got - want)

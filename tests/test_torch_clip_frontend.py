@@ -3,7 +3,10 @@ version, and ``features_from_int16`` routed through it) against the JAX
 package.
 
 Every comparison is ``==``: the frontend is integer arithmetic. The JAX side
-is ``MicroFrontendJax(use_pallas=False)``, its composed exact path; the JAX
+is ``MicroFrontendJax(use_pallas=False)``, its composed exact path; the
+kernel's two suffix halves (the serial noise estimate and the pointwise
+rest, ``noise_estimate_chain_plain`` and ``suffix_pointwise_plain``) are
+held to it one by one, also with PCAN or log off; the JAX
 package's own tests hold that path ``==`` its fused Pallas kernel
 ``clip_frontend_features`` (tests/test_pallas_frontend.py), whose 36 s
 interpret-mode run stays out of this file. The stateless prefix per clip
@@ -17,12 +20,14 @@ import pytest
 import torch
 
 from multilingual_kws_tpu.data.dataset import file2spec as jax_file2spec
+from multilingual_kws_tpu.ops import micro_int as jax_micro_int
 from multilingual_kws_tpu.ops.micro_exact import FrontendConfig as JaxFrontendConfig
 from multilingual_kws_tpu.ops.micro_jax import MicroFrontendJax
 from multilingual_kws_tpu.ops.pallas_fft import clip_frontend
 from multilingual_kws_tpu.settings import standard_microspeech_model_settings as jax_settings
 from multilingual_kws_tpu_torch.data.dataset import file2spec
-from multilingual_kws_tpu_torch.ops import cuda_clip, cuda_fft
+from multilingual_kws_tpu_torch.ops import cuda_clip, cuda_fft, cuda_frontend
+from multilingual_kws_tpu_torch.ops.micro_exact import FrontendConfig
 from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 from multilingual_kws_tpu_torch.utils.wav import write_wav
@@ -52,6 +57,62 @@ def test_clip_features_match_jax(fj, ft, b, samples):
     assert plain.shape == want.shape == (b, ft.num_frames(samples), 40)
     np.testing.assert_array_equal(plain, want)
     np.testing.assert_array_equal(routed, want)
+
+
+# the cost probe's diagnostic frontends (probes/fft_cost.py) and the
+# default one; the JAX package's fused kernel takes the same switches
+CONFIGS = {
+    "default": {},
+    "no_pcan": {"enable_pcan": False},
+    "no_log": {"enable_log": False},
+    "no_pcan_no_log": {"enable_pcan": False, "enable_log": False},
+}
+
+
+@pytest.mark.parametrize("cfg", ["no_pcan", "no_log", "no_pcan_no_log"])
+def test_clip_features_configs_match_jax(cfg):
+    fj = MicroFrontendJax(JaxFrontendConfig(**CONFIGS[cfg]), use_pallas=False)
+    ft = MicroFrontendTorch(FrontendConfig(**CONFIGS[cfg]), device="cpu")
+    audio = _clips(3, 16000, seed=17)
+    want = np.asarray(fj.features_from_int16(jnp.asarray(audio)))
+    got = cuda_clip.clip_features_plain(torch.from_numpy(audio), ft).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _jax_noise_chain(fj, base):
+    """The JAX package's noise-estimate recurrence (its CPU path: a lax.scan
+    of ``micro_int.nr_estimate_step``) over (B, F, C) uint32 signal."""
+    x = jnp.moveaxis(jnp.asarray(base, jnp.uint32), -2, 0)
+
+    def step(est, sig):
+        est = jax_micro_int.nr_estimate_step(est, sig, fj.sm_u, fj.om_u, fj.t.smoothing_bits)
+        return est, est
+
+    _, est = jax.lax.scan(step, jnp.zeros(x.shape[1:], jnp.uint32), x)
+    return np.asarray(jnp.moveaxis(est, 0, -2))
+
+
+@pytest.mark.parametrize("cfg", ["default", "no_pcan", "no_log"])
+def test_suffix_halves_match_jax(cfg):
+    """The noise-estimate chain alone, then the pointwise rest from the
+    signal and its estimates, against the JAX package's suffix and the
+    stream suffix's plain version. One clip's rows hold large values, where
+    ``sig << smoothing_bits`` wraps as in C."""
+    fj = MicroFrontendJax(JaxFrontendConfig(**CONFIGS[cfg]), use_pallas=False)
+    ft = MicroFrontendTorch(FrontendConfig(**CONFIGS[cfg]), device="cpu")
+    base = cuda_fft.stream_prefix_plain(torch.from_numpy(_clips(3, 16000, seed=19)), ft).numpy()
+    base[2, 20:30] = np.random.default_rng(19).integers(0, 2**24, (10, 40))
+    x = torch.from_numpy(base.astype(np.int64))
+    est = cuda_frontend.noise_estimate_chain_plain(x, ft)
+    np.testing.assert_array_equal(est.numpy(), _jax_noise_chain(fj, base))
+    raw = cuda_frontend.suffix_pointwise_plain(x, est, ft)
+    want = np.asarray(fj.nr_pcan_log_int(jnp.asarray(base, jnp.uint32)))
+    np.testing.assert_array_equal(raw.numpy(), want.astype(np.int64))
+    b, f, c = base.shape
+    windows = cuda_frontend.stream_suffix_plain(
+        torch.from_numpy(base.reshape(b * f, c)), b, f, f, ft, scaled=False
+    )
+    np.testing.assert_array_equal(windows.numpy(), raw.numpy())
 
 
 def test_clip_features_raw_match_jax(fj, ft):
