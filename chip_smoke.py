@@ -9,7 +9,10 @@ Builds the port's CUDA kernels from ``multilingual_kws_tpu_torch/csrc`` with
 nvcc, then:
 
   (a) holds each kernel against its plain PyTorch version on the card (==),
-      on a seeded 60 s stream and on edge cases;
+      on a seeded 60 s stream and on edge cases, and ``stream_suffix`` over
+      every caller's shape (1, 63 and 65 windows at strides 1, 7 and 49, one
+      window of 5999 frames; default, no-PCAN and no-log frontends; scaled
+      and raw) at each of its layouts (1 and 4 channels a thread);
   (b) checks the port's features on the card against the golden features of
       the real TFLite op (tests/golden/microfrontend_golden.npz), ==;
   (c) drives the main path: ``calculate_streaming_accuracy`` over a
@@ -22,14 +25,21 @@ nvcc, then:
       the random model's target softmax passes 0.5 on about half of the
       windows and the detector runs on non-empty input;
   (d) holds each kernel against its plain version at the main path's
-      shapes (==, and the max |kernel - plain| measured there) and times
-      both;
+      shapes (==, and the max |kernel - plain| measured there; the suffix
+      for each frontend variant, output and layout) and times both; times
+      the suffix's two layouts at the stream's first 4,096 to 27,000
+      windows and all 29,950, at 64 and 2048 clips and on one long window
+      (where they cross sets the launch plan's switch point), and prints
+      each layout's SASS census (``probes/sass.py``);
   (e) the few-shot fine-tune slice: holds the clip-frontend and augment
       kernels against their plain versions (clip_features == plain and ==
       prefix + suffix, also with the cost probe's PCAN-off and log-off
       frontends; augment_quantize == plain on rows that are not mixed,
       within one int16 step on fewer than 1e-4 of the mixed rows' samples,
-      with and without shift, and == itself on a second run), then drives
+      with and without shift, and == itself on a second run), runs
+      ``features_from_int16`` on 64 10 s clips (the prefix on a clip batch,
+      B6, and the suffix at stride F; launches counted, the features and
+      each kernel == plain on that batch, the prefix timed there), then drives
       ``transfer_learn`` on a synthesized corpus at
       the JAX defaults (full-width EfficientNetB0, batch 64, 4 epochs x 64
       steps, 5 shots, no base weights: BN calibration on the card), and one
@@ -44,8 +54,8 @@ nvcc, then:
       the streaming and resident input pipelines give equal specs. It
       times the fine-tune step (median and best of five epochs) and its
       parts, the transform's device time, one profiled epoch's device busy
-      time and idle share, and the two kernels and ``stream_prefix`` at
-      batches of 64 and 2048 clips;
+      time and idle share, and the two kernels at batches of 64 and 2048
+      clips;
   (f) the fast frontend mode (``MicroFrontendTorch(mode="fast")``): holds
       ``noise_scan_f32`` against its plain version (==) at the stream's
       shape, at 64 and 2048 clips and on the edge cases, drives the
@@ -59,15 +69,20 @@ nvcc, then:
       100,352 rows with extreme rows) and against the energies of the kiss
       FFT on the stream's own frames, runs the frontend cost decomposition
       (``probes/fft_cost.py``), holds ``rate_chain`` (each operation class)
-      and ``dot_chain`` against their plain versions (==), and measures the
-      card's rates (``probes/rates.py``), each beside the data-sheet peak it
-      tests; a rate above its peak, or a chain that does not grow linearly
-      with its depth, fails the run. Last, one JSON line ``{"kernels":
-      [...]}`` lists all eight kernels.
+      and ``dot_chain`` (rows 64, 128, 192 and 25,088, k 0, 1, 5 and 64)
+      against their plain versions (==), and measures the card's rates
+      (``probes/rates.py``), each beside the data-sheet peak it tests; a
+      rate above its peak, or a chain that does not grow linearly with its
+      depth, fails the run. It prices every
+      bound again at the measured rates, and ``stream_suffix``'s census at
+      the measured integer instruction rate. Last, one JSON line
+      ``{"kernels": [...]}`` lists all nine kernels (``stream_prefix`` twice:
+      on the stream, B2, and on a clip batch, B6).
 
 Kernel times are device times: the mean duration of the kernel's own
 events in a ``torch.profiler`` trace of 20 calls (``kernel_ms``), which
-also gives the launch's grid. The wrapper loop's time per call (CUDA events
+also gives the launch's grid; a run whose three traces in a row each hold
+fewer than half of those events fails. The wrapper loop's time per call (CUDA events
 around 20 calls, ``cuda_ms``) is printed beside it as host µs per call: at
 small shapes it measures the Python wrapper's dispatch, not the kernel.
 Plain versions are timed by CUDA events.
@@ -126,12 +141,16 @@ PEAK_BF16_FLOPS = 989e12  # tensor cores, dense (NVIDIA data sheet)
 GRID_STEP = 10.0 / 256.0  # one step of the features' uint16 grid
 FT_BATCH = 64  # the fine-tune's batch (the JAX package's default)
 FT_SHOTS = 5
+LONG_CLIPS = 64  # 10 s clips through features_from_int16: the prefix on a clip batch (B6)
 
 
 # the work behind each kernel's reported bound: name -> (bytes, operations,
 # the peak their operations are priced at); phase g prices it again at the
 # rates the card measured
 WORK = {}
+# stream_suffix's instruction census by layout (channels a thread), from
+# phase d; phase g prices it at the measured integer instruction rate
+CENSUS = {}
 
 
 def bound(nbytes, ops, ops_per_s=PEAK_INT32_OPS_PER_S, name=None, bytes_per_s=PEAK_BYTES_PER_S):
@@ -175,7 +194,7 @@ def device_trace(torch, fn, iters: int = 1, warmup: int = 1, expect=None):
     profiled calls, which end in a synchronize. A trace may miss an event
     at its start, and now and then comes back with few or none: with
     ``expect`` = (name, n), it is taken again, up to three times, until it
-    holds at least n - 2 kernels of that name."""
+    holds at least n kernels of that name; if none does, it fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -197,10 +216,10 @@ def device_trace(torch, fn, iters: int = 1, warmup: int = 1, expect=None):
         if expect is None:
             break
         got = sum(e["cat"] == "kernel" and expect[0] in e["name"] for e in events)
-        if got >= expect[1] - 2:
+        if got >= expect[1]:
             break
     else:
-        fail(f"{expect[0]}: {got} device events in the trace, expected {expect[1]}")
+        fail(f"{expect[0]}: {got} device events in the trace, expected at least {expect[1]}")
     return events, wall
 
 
@@ -217,9 +236,10 @@ def busy_us(spans) -> float:
 def kernel_ms(torch, fn, kernel: str, iters: int = 20):
     """A kernel's own device time: the mean duration (ms) of the device
     events whose name holds ``kernel`` over ``iters`` calls of fn, each of
-    which launches it once (the mean is over the events the trace holds);
-    and that launch's grid and block."""
-    events, _ = device_trace(torch, fn, iters, expect=(kernel, iters))
+    which launches it once (the mean is over the events the trace holds,
+    at least half of them, or the run fails); and that launch's grid and
+    block."""
+    events, _ = device_trace(torch, fn, iters, expect=(kernel, iters // 2))
     hits = [e for e in events if e["cat"] == "kernel" and kernel in e["name"]]
     args = hits[0].get("args", {})
     return sum(e["dur"] for e in hits) / len(hits) / 1e3, args.get("grid"), args.get("block")
@@ -349,6 +369,49 @@ def profile_run(torch, runs, out_dir: Path):
             f"device ms by kind {by_kind}; top ops by device ms {top}"
         )
 
+SUFFIX_WINDOWS = (1, 63, 65)
+SUFFIX_STRIDES = (1, 7, 49)
+SUFFIX_LAYOUTS = (1, 4)  # channels a thread
+SUFFIX_SWEEP = (4096, 8192, 12288, 16384, 20480, 24576, 27000)  # stream windows, both layouts timed
+
+
+def frontend_variants(fe):
+    """The default frontend and the cost probe's diagnostic ones (PCAN off,
+    log off)."""
+    from multilingual_kws_tpu_torch.ops.micro_exact import FrontendConfig
+    from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
+
+    return {"default": fe,
+            "no_pcan": MicroFrontendTorch(FrontendConfig(enable_pcan=False), device="cuda"),
+            "no_log": MicroFrontendTorch(FrontendConfig(enable_log=False), device="cuda")}
+
+
+def suffix_grid(torch, fe, dev) -> int:
+    """stream_suffix == plain over every caller's shape: 1, 63 and 65
+    windows of 49 frames at strides 1, 7 and 49, and one window of 5999
+    frames (a 2-minute clip at stride F); each frontend variant, scaled and
+    raw, each layout. Returns the number of comparisons."""
+    from multilingual_kws_tpu_torch.ops import cuda_fft, cuda_frontend
+
+    wave, _ = synth_stream(120, seed=7)
+    audio = torch.from_numpy(np.clip(np.trunc(wave * 32768.0), -32768, 32767).astype(np.int16)).to(dev)
+    base = cuda_fft.stream_prefix(audio[None], fe)[0]
+    shapes = [(n, st, 49) for n in SUFFIX_WINDOWS for st in SUFFIX_STRIDES] + [(1, base.shape[0], base.shape[0])]
+    n_cmp = 0
+    for name, f in frontend_variants(fe).items():
+        for n, stride, frames in shapes:
+            for scaled in (True, False):
+                want = cuda_frontend.stream_suffix_plain(base, n, stride, frames, f, scaled=scaled)
+                for cpt in SUFFIX_LAYOUTS:
+                    got = cuda_frontend.launch_suffix(base, n, stride, frames, f, scaled, cpt)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"suffix != plain: {name}, {n} windows, stride {stride}, {frames} frames, "
+                          f"scaled={scaled}, {cpt} channels a thread")
+                    n_cmp += 1
+    return n_cmp
+
+
 def finetune_phase(torch, fe, cases, rng, then=None):
     """Phase e: the fine-tune slice on the card (see the module docstring).
     Returns the ``kernels`` entries of clip_features and augment_quantize,
@@ -412,6 +475,31 @@ def finetune_phase(torch, fe, cases, rng, then=None):
         for nb in (64, 2048):
             clip_check(clips[:nb], f"{nb} clips, {cfg}", fe=other)
     clips_dev = torch.from_numpy(clips).to(dev)
+    # audio longer than the fused kernel takes (10 s clips, 499 frames):
+    # features_from_int16 runs the prefix on the clip batch (B6) and the
+    # suffix at stride F; each is held == plain on that batch, and B6's
+    # kernels entry is timed and bounded there
+    loud = rng.uniform(30, 12000, (LONG_CLIPS, 1))
+    long_audio = torch.from_numpy(np.clip(np.round(rng.normal(0, 1, (LONG_CLIPS, 10 * SR)) * loud),
+                                          -32768, 32767).astype(np.int16)).to(dev)
+    cuda_fft.stream_prefix.launches = cuda_frontend.stream_suffix.launches = 0
+    long_feats = fe.features_from_int16(long_audio)
+    launches_long = {"stream_prefix": cuda_fft.stream_prefix.launches,
+                     "stream_suffix": cuda_frontend.stream_suffix.launches}
+    torch.cuda.synchronize()
+    check(launches_long == {"stream_prefix": 1, "stream_suffix": 1}, f"10 s clips: launches {launches_long}")
+    check(torch.equal(long_feats, cuda_clip.clip_features_plain(long_audio, fe)), "features of 10 s clips != plain")
+    long_base = cuda_fft.stream_prefix(long_audio, fe)
+    torch.cuda.synchronize()
+    long_plain = cuda_fft.stream_prefix_plain(long_audio, fe)
+    err_prefix_long = float((long_base.to(torch.int64) - long_plain.to(torch.int64)).abs().max())
+    check(torch.equal(long_base, long_plain), f"stream_prefix != plain on 10 s clips: {err_prefix_long}")
+    nf_long = long_base.shape[1]
+    long_base = long_base.reshape(-1, c)
+    check(torch.equal(cuda_frontend.stream_suffix(long_base, LONG_CLIPS, nf_long, nf_long, fe),
+                      cuda_frontend.stream_suffix_plain(long_base, LONG_CLIPS, nf_long, nf_long, fe)),
+          "stream_suffix != plain on 10 s clips")
+    del long_feats, long_plain, long_base
     a32 = clips_dev[:64].to(torch.int32)
     check(torch.equal(fe.features_from_int16(a32), fe.features_from_int16(clips_dev[:64])),
           "int32 audio features differ from int16 audio features on the card")
@@ -458,7 +546,9 @@ def finetune_phase(torch, fe, cases, rng, then=None):
           f"clips of 9000, 24000 and 64160 samples, 64 and 2048 clips (max |kernel - plain| "
           f"{err_clip}), and at 64 and 2048 clips with PCAN and log off and with log off; int32 audio == "
           f"int16 audio; augment_quantize == itself on a second run, and (rows, max_shift): (max "
-          f"|kernel - plain| in int16 steps, share of samples that differ) {err_aug}")
+          f"|kernel - plain| in int16 steps, share of samples that differ) {err_aug}; features_from_int16 on "
+          f"{LONG_CLIPS} 10 s clips == plain, stream_prefix and stream_suffix == plain on them, "
+          f"launches {launches_long}")
 
     # 2. the slice: transfer_learn at the JAX defaults, then one epoch of phase 2
     with tempfile.TemporaryDirectory() as tmp:
@@ -580,7 +670,7 @@ def finetune_phase(torch, fe, cases, rng, then=None):
         t_transform = cuda_ms(torch, lambda: transform(0), 20)
         # the transform's device time per batch (the union of its device
         # events), and its two kernels' part of it
-        ev, _ = device_trace(torch, lambda: transform(0), 20, expect=("clip_features_kernel", 20))
+        ev, _ = device_trace(torch, lambda: transform(0), 20, expect=("clip_features_kernel", 18))
         n_traced = sum("clip_features_kernel" in e["name"] for e in ev)  # one per batch
         dev_transform = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / n_traced / 1e3
         dev_in_transform = {
@@ -601,7 +691,7 @@ def finetune_phase(torch, fe, cases, rng, then=None):
         ms_step = float(np.median(ms_steps))
         # one more epoch under the profiler: the steps' device busy time and
         # the idle share of their wall
-        ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", FT_BATCH))
+        ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", FT_BATCH - 2))
         busy_epoch = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / 1e3
         idle_epoch = 1 - busy_epoch / 1e3 / wall_epoch
 
@@ -619,8 +709,6 @@ def finetune_phase(torch, fe, cases, rng, then=None):
             "aug": ("augment_quantize_kernel",
                     lambda: cuda_augment.augment_quantize(clips_dev, rows, sil_t, bg, d),
                     lambda: cuda_augment.augment_quantize_plain(clips_dev, rows, sil_t, bg, d)),
-            "prefix": ("stream_prefix_kernel", lambda: cuda_fft.stream_prefix(a, fe),
-                       lambda: cuda_fft.stream_prefix_plain(a, fe)),
         }
         for k, (kernel, run, run_plain) in runs.items():
             times[k, nb], grids[k, nb], _ = kernel_ms(torch, run, kernel)
@@ -633,8 +721,6 @@ def finetune_phase(torch, fe, cases, rng, then=None):
         bounds["aug", nb] = bound(nb * (SR * (2 + 4 + 2) + 21), nb * SR * AUGMENT_OPS_PER_SAMPLE,
                                   PEAK_FP32_OPS_PER_S,
                                   name="augment_quantize" if nb == 64 else f"augment_quantize@{nb}")
-        bounds["prefix", nb] = bound(nb * SR * 2 + nb * nf * c * 4, nb * nf * PREFIX_OPS_PER_FRAME,
-                                     name=f"stream_prefix@{nb} clips")
     print(
         f"phase e: transfer_learn {wall1:.2f} s (calibration, {len(steps1)} steps, 4 evals), "
         f"then {wall2:.2f} s ({len(steps2)} steps over phases 1 and 2, 2 evals); val accuracy "
@@ -651,12 +737,19 @@ def finetune_phase(torch, fe, cases, rng, then=None):
         f"(device ms of its kernels {dev_in_transform}); one profiled epoch of {FT_BATCH} steps: wall "
         f"{wall_epoch:.4f} s, device busy {busy_epoch:.3f} ms, idle share {idle_epoch:.4f}"
     )
+    # B6 on the 10 s clips whose launches were counted above
+    k_long, grid_long, _ = kernel_ms(torch, lambda: cuda_fft.stream_prefix(long_audio, fe), "stream_prefix_kernel")
+    p_long = cuda_ms(torch, lambda: cuda_fft.stream_prefix_plain(long_audio, fe), 3)
+    b_long = bound(long_audio.numel() * 2 + LONG_CLIPS * nf_long * c * 4, LONG_CLIPS * nf_long * PREFIX_OPS_PER_FRAME,
+                   name="stream_prefix_clips")
     print("phase e: kernel device ms (profiler) at 64 / 2048 clips [wrapper loop, host us per call; "
           "plain ms; bound ms (by); grid]: " + "; ".join(
               f"{k} " + " / ".join(
                   f"{times[k, nb]:.5f} [{host[k, nb]:.1f} us; plain {plain[k, nb]:.3f}; bound "
                   f"{bounds[k, nb][0]:.5f} ({bounds[k, nb][1]}); grid {grids[k, nb]}]" for nb in (64, 2048))
-              for k in ("clip", "aug", "prefix")))
+              for k in ("clip", "aug"))
+          + f"; stream_prefix on {LONG_CLIPS} 10 s clips ({nf_long} frames each) {k_long:.5f} [plain {p_long:.3f}; "
+          f"bound {b_long[0]:.5f} ({b_long[1]}); grid {grid_long}]")
     return epoch, after, [
         {
             "name": "clip_features", "route": "cuda",
@@ -665,6 +758,14 @@ def finetune_phase(torch, fe, cases, rng, then=None):
             "launches": launches["clip_features"], "max_abs_err": err_clip[64],
             "ms": times["clip", 64], "plain_ms": plain["clip", 64],
             "bound_ms": bounds["clip", 64][0], "bound_by": bounds["clip", 64][1], "library_ms": None,
+        },
+        {
+            "name": "stream_prefix_clips", "route": "cuda",
+            "source": f"{PKG}/csrc/frontend.cu",
+            "replaces": "multilingual_kws_tpu/ops/pallas_fft.py:456",
+            "launches": launches_long["stream_prefix"], "max_abs_err": err_prefix_long,
+            "ms": k_long, "plain_ms": p_long,
+            "bound_ms": b_long[0], "bound_by": b_long[1], "library_ms": None,
         },
         {
             "name": "augment_quantize", "route": "cuda",
@@ -841,11 +942,15 @@ def fast_phase(torch, fe, ff, model, wave, labels, i16, n_w, cases, eval_res, ex
     }]
 
 
+DOT_ROWS = (64, 128, 192, 25088)
+DOT_KS = (0, 1, 5, 64)
+
+
 def probe_phase(torch, fe, cases):
     """Phase g: fft_energy and the rate probes (see the module docstring).
     Returns the ``kernels`` entries of fft_energy, rate_chain and dot_chain."""
     from multilingual_kws_tpu_torch.ops import cuda_fft
-    from multilingual_kws_tpu_torch.probes import fft_cost, rates
+    from multilingual_kws_tpu_torch.probes import fft_cost, rates, sass
 
     dev = torch.device("cuda")
     rows = BATCH * 49
@@ -897,11 +1002,16 @@ def probe_phase(torch, fe, cases):
         want = rates.rate_chain_plain(x, y, op, 7)
         err_rate = max(err_rate, float((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
         check(torch.equal(got, want), f"rate_chain != plain for {op}")
-    got = rates.dot_chain(xd, w, 5)
-    torch.cuda.synchronize()
-    want = rates.dot_chain_plain(xd, w, 5)
-    err_dot = float((got - want).abs().max())
-    check(torch.equal(got, want), f"dot_chain != plain: max {err_dot}")
+    err_dot = 0.0
+    w_img = rates.swizzled_w(w)
+    for rows_d in DOT_ROWS:
+        for k in DOT_KS:
+            want = rates.dot_chain_plain(xd[:rows_d], w, k)
+            got = rates.dot_chain(xd[:rows_d], w, k)
+            torch.cuda.synchronize()
+            err_dot = max(err_dot, float((got - want).abs().max()))
+            check(torch.equal(got, want), f"dot_chain != plain at {rows_d} rows, k={k}")
+    del got, want
     rates.rate_chain.launches = rates.dot_chain.launches = 0
     r = rates.measure_rates("cuda")
     launches_rate, launches_dot = rates.rate_chain.launches, rates.dot_chain.launches
@@ -912,11 +1022,14 @@ def probe_phase(torch, fe, cases):
     check(r["copy"]["bytes_per_s"] <= PEAK_BYTES_PER_S, f"copy above the memory peak: {r['copy']}")
     dot = r["dot_bf16"]
     check(0.8 <= dot["linearity"] <= 1.25 and dot["flop_per_s"] <= PEAK_BF16_FLOPS, f"dot chain: {dot}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True).stdout.split("\n")[0]
+    sm_mhz, max_mhz = (float(v) for v in clock.split(","))
 
     k1, d2 = rates.DEPTHS[0], rates.DOT_DEPTHS[1]
     n = x.numel()
     k_rate = kernel_ms(torch, lambda: rates.rate_chain(x, y, "alu", k1), "rate_chain_kernel")[0]
-    k_dot = kernel_ms(torch, lambda: rates.dot_chain(xd, w, d2), "dot_chain_kernel")[0]
+    k_dot, grid_dot, _ = kernel_ms(torch, lambda: rates.launch_dot_chain(xd, w_img, d2), "dot_chain_kernel")
     p_rate = cuda_ms(torch, lambda: rates.rate_chain_plain(x, y, "alu", k1), 1, warmup=0)
     b_rate = bound(3 * n * 4, n * k1 * rates.OPS_PER_PASS["alu"], name="rate_chain")
     p_dot = cuda_ms(torch, lambda: rates.dot_chain_plain(xd, w, d2), 2)
@@ -932,17 +1045,29 @@ def probe_phase(torch, fe, cases):
     }
     print(f"phase g: fft_energy == plain at {rows} rows (extreme rows included) and == the kiss FFT's "
           f"energies on {n_frames} stream frames; decomposition, us per clip at {BATCH} clips: {cost}")
-    print(f"phase g: rate_chain == plain for {list(rates.OPS)}, dot_chain == plain; rates at depths "
+    print(f"phase g: rate_chain == plain for {list(rates.OPS)}, dot_chain == plain at rows {DOT_ROWS} x k "
+          f"{DOT_KS}; rates at depths "
           f"{rates.DEPTHS} (dot {rates.DOT_DEPTHS}): " + "; ".join(
               f"{op} {r[op]['ops_per_s'] / 1e12:.3f} T ops/s (linearity {r[op]['linearity']:.3f})"
               for op in rates.OPS_PER_PASS)
           + f" -- data sheet INT32 {PEAK_INT32_OPS_PER_S / 1e12:.1f} T/s; copy "
           f"{r['copy']['bytes_per_s'] / 1e9:.1f} GB/s -- data sheet {PEAK_BYTES_PER_S / 1e9:.0f} GB/s; bf16 "
-          f"dot chain (mma.sync) {dot['flop_per_s'] / 1e12:.1f} TFLOP/s (linearity {dot['linearity']:.3f}), "
+          f"dot chain (wgmma) {dot['flop_per_s'] / 1e12:.1f} TFLOP/s (linearity {dot['linearity']:.3f}), "
           f"one bf16 torch.matmul pass {dot['matmul_pass_ms']:.4f} ms "
           f"({flop / d2 / dot['matmul_pass_ms'] / 1e9:.1f} TFLOP/s) -- data sheet {PEAK_BF16_FLOPS / 1e12:.0f} "
           f"TFLOP/s; chain ms {[(op, r[op]['ms']) for op in rates.OPS_PER_PASS]}, dot ms {dot['ms']}")
     print(f"phase g: each kernel's bound (ms, by) at the rates this card measured: {repriced}")
+    # stream_suffix's instruction-level bound: its census (phase d) at the
+    # alu chain's instruction rate (two instructions a pass)
+    alu_instr = r["alu"]["ops_per_s"] / rates.OPS_PER_PASS["alu"]
+    elems = WORK["stream_suffix"][1] / SUFFIX_OPS_PER_ELEMENT
+    print("phase g: stream_suffix's instruction bound (ms) at the stream's shape, census at "
+          f"{alu_instr / 1e12:.3f} T integer instructions/s: " + "; ".join(
+              f"{cpt} channels a thread {sass.issue_bound_ms(loops[0], elems, alu_instr)}"
+              for cpt, loops in CENSUS.items()))
+    print(f"phase g: SM clock {sm_mhz:.0f} MHz (maximum {max_mhz:.0f}); the bf16 dot chain's "
+          f"{dot['flop_per_s'] / 1e12:.1f} TFLOP/s is {dot['flop_per_s'] / PEAK_BF16_FLOPS:.3f} of the data "
+          f"sheet's {PEAK_BF16_FLOPS / 1e12:.0f}; dot_chain grid {grid_dot}")
     print(f"phase g: kernel device ms (profiler): fft_energy {k_fft:.5f} ({h_fft:.1f} us per wrapper call), "
           f"rate_chain alu k={k1} {k_rate:.5f}, dot_chain k={d2} {k_dot:.5f}")
     return [
@@ -989,6 +1114,7 @@ def main() -> int:
     from multilingual_kws_tpu_torch.models.kws_model import make_transfer_model, seeded_init_
     from multilingual_kws_tpu_torch.ops import _build, cuda_fft, cuda_frontend
     from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
+    from multilingual_kws_tpu_torch.probes import sass
     from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
     from multilingual_kws_tpu_torch.utils.wav import write_wav
 
@@ -1031,8 +1157,11 @@ def main() -> int:
     got = cuda_frontend.stream_suffix(base.reshape(-1, 40), 8, 49, 49, fe)
     want = cuda_frontend.stream_suffix_plain(base.reshape(-1, 40), 8, 49, 49, fe)
     check(torch.equal(got, want), "suffix != plain on clip batches")
+    n_suffix = suffix_grid(torch, fe, dev)
     print(f"phase a: kernels == plain versions on the card in {n_cmp + 1} comparisons "
-          f"({len(cases)} inputs and clip batches)")
+          f"({len(cases)} inputs and clip batches); stream_suffix == plain in {n_suffix} more: "
+          f"{SUFFIX_WINDOWS} windows at strides {SUFFIX_STRIDES} of 49 frames and one window of 5999 "
+          f"frames, default, no-PCAN and no-log frontends, scaled and raw, at {SUFFIX_LAYOUTS} channels a thread")
 
     # (b) golden features of the real TFLite op
     golden = np.load(ROOT / "tests" / "golden" / "microfrontend_golden.npz")
@@ -1129,6 +1258,14 @@ def main() -> int:
     check(torch.equal(feats, plain), f"suffix != plain at the main path's shape: {err_suffix}")
     batch = feats[:BATCH, ..., None].contiguous()
     del feats, plain
+    for name, f in frontend_variants(fe).items():
+        for scaled in (True, False):
+            want = cuda_frontend.stream_suffix_plain(base, n_w, 1, 49, f, scaled=scaled)
+            for cpt in SUFFIX_LAYOUTS:
+                got = cuda_frontend.launch_suffix(base, n_w, 1, 49, f, scaled, cpt)
+                check(torch.equal(got, want),
+                      f"suffix != plain at the main path's shape: {name}, scaled={scaled}, {cpt} channels a thread")
+    del got, want
     k_prefix = kernel_ms(torch, lambda: cuda_fft.stream_prefix(audio, fe), "stream_prefix_kernel")[0]
     h_prefix = cuda_ms(torch, lambda: cuda_fft.stream_prefix(audio, fe), 20) * 1e3
     p_prefix = cuda_ms(torch, lambda: cuda_fft.stream_prefix_plain(audio, fe), 3)
@@ -1138,6 +1275,29 @@ def main() -> int:
     p_suffix = cuda_ms(torch, lambda: cuda_frontend.stream_suffix_plain(base, n_w, 1, 49, fe), 3)
     with torch.inference_mode():
         model_ms = cuda_ms(torch, lambda: model(batch), 5)
+    # the suffix's layouts (channels a thread) on the stream's first
+    # SUFFIX_SWEEP windows and all of them (stride 1), at 64 and 2048
+    # one-second clips (stride 49) and on one long window (the stream's
+    # 29,999 frames as one clip): where the two cross sets the launch
+    # plan's switch point; and each layout's census
+    loud = np.random.default_rng(8).uniform(30, 12000, (2048, 1))
+    clips = np.clip(np.round(np.random.default_rng(9).normal(0, 1, (2048, SR)) * loud), -32768, 32767)
+    clip_base = cuda_fft.stream_prefix(torch.from_numpy(clips.astype(np.int16)).to(dev), fe).reshape(-1, c)
+    shapes = {f"{n} windows": (base, n, 1, 49, 20) for n in SUFFIX_SWEEP}
+    shapes.update({"stream": (base, n_w, 1, 49, 20), "64 clips": (clip_base, 64, 49, 49, 20),
+                   "2048 clips": (clip_base, 2048, 49, 49, 20), "one long window": (base, 1, frames, frames, 5)})
+    layouts = {}
+    for cpt in SUFFIX_LAYOUTS:
+        for what, (b, n, st, nf, it) in shapes.items():
+            layouts[what, cpt] = kernel_ms(torch, lambda: cuda_frontend.launch_suffix(
+                b, n, st, nf, fe, True, cpt), "stream_suffix_kernel", iters=it)[0]
+    del clip_base
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = {what: cuda_frontend.launch_plan(shape[1], c, sms) for what, shape in shapes.items()}
+    lib = _build._target("frontend")
+    for cpt in SUFFIX_LAYOUTS:
+        CENSUS[cpt] = sass.census(lib, f"stream_suffix_kernelILi{cpt}ELb1ELb1ELb1E")
+        check(len(CENSUS[cpt]) == 1, f"stream_suffix<{cpt}>: {len(CENSUS[cpt])} storing loops in the census")
 
     b_prefix = bound(audio.numel() * 2 + frames * c * 4, frames * PREFIX_OPS_PER_FRAME, name="stream_prefix")
     out_elems = n_w * 49 * c
@@ -1168,6 +1328,15 @@ def main() -> int:
         f"{n_batches * model_ms:.1f} ms); kernel device ms (profiler) stream_prefix {k_prefix:.5f}, "
         f"stream_suffix {k_suffix:.5f} (wrapper loop, host us per call: {h_prefix:.1f}, {h_suffix:.1f})"
     )
+    print("phase d: stream_suffix == plain at the stream's shape for the default, no-PCAN and no-log frontends, "
+          f"scaled and raw, at {SUFFIX_LAYOUTS} channels a thread; device ms by layout (channels a thread: ms; "
+          f"the launch plan's choice in brackets): " + "; ".join(
+              f"{what} " + ", ".join(f"{cpt}: {layouts[what, cpt]:.5f}" for cpt in SUFFIX_LAYOUTS) + f" [{plan[what]}]"
+              for what in plan))
+    for cpt, loops in CENSUS.items():
+        loop = {k: v for k, v in loops[0].items() if k != "function"}
+        print(f"phase d: SASS census of stream_suffix's loop at {cpt} channels a thread (exact frontend, "
+              f"float features): {json.dumps(loop)}")
     del cpu_model, batch, base, audio
 
     # (e) the fine-tune slice, and (f)'s batch eval and training batches on

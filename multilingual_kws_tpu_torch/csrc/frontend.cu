@@ -40,16 +40,39 @@
 //                (_nr_kernel_u32), the pointwise stages of
 //                micro_jax.nr_pcan_log_int after it and the (W, 49, 40) window
 //                gather of micro_jax._stream_impl before it.
-//   One thread per (window, channel) runs the 49-step noise-estimate
-//   recurrence with its carry in a register, and at each step the noise
-//   subtraction, PCAN gain, integer log and the 10/256 scale.
-//   Bound: bytes or integer operations, about even (the (W, 49, 40) float32
-//   output, ~1960 floats per window, dwarfs the base rows it reads; 52 ops
-//   per output). Design: it reads the base rows of each window directly
-//   (window w is rows w*stride .. w*stride+F-1), so the gathered windows
-//   never exist in memory; neighbouring threads are neighbouring channels,
-//   so reads and writes coalesce, and the base rows that 49 windows share
-//   come from L1/L2.
+//   Per (window, frame, channel): the noise-estimate step (the only serial
+//   part, restarting at each window's first row), noise subtraction, PCAN
+//   gain, the integer log and the 10/256 scale.
+//   Bound: integer instructions. At the data sheet its 52 operations an
+//   output outweigh its bytes (at the stream's 29,950 windows 0.0911 ms of
+//   operations against 0.0716 ms of bytes), and the compiled loop issues
+//   more than the algorithm counts: chip_smoke.py prints its SASS census
+//   (probes/sass.py), 63.5 instructions an element at four channels a
+//   thread, 40.5 of them on the ALU pipe, which bound the stream at about
+//   0.16 ms at the rate the alu probe measures (NVIDIA H100 80GB HBM3,
+//   700 W; PERF.md). The first design,
+//   one thread per (window, channel) with 64-bit arithmetic and its tables
+//   read through the read-only cache at lane-divergent addresses, issued 119
+//   an element.
+//   Design: a thread takes CPT (1 or 4) consecutive channels of one window:
+//   CPT independent chains in registers, one load of CPT base-row values and
+//   one store of CPT features a frame (16 bytes at CPT = 4). The launch plan
+//   (ops/cuda_frontend.py) takes four from 640 of its threads an SM up (the
+//   two layouts cross at about 8,200 windows, 620 an SM) and one below
+//   (short streams, clip batches, one long clip: latency bound, so the most
+//   threads win). Window w reads base rows w*stride ..
+//   directly, so the gathered windows never exist in memory, and the rows
+//   neighbouring windows share come from L1. The pointwise rest
+//   (suffix_pointwise32) is 32-bit wherever the C semantics fit, with its
+//   tables packed in shared memory (WideDynamicFunction's rows as int4,
+//   lut012 appended as three rows; the log LUT as (c0, c1 - c0) pairs), and
+//   the float conversion is an fma on the exponent-or'ed bits. Measured and
+//   rejected (PERF.md): two channels a thread, never faster than both of
+//   the others. chip_smoke.py phase d times the two kept layouts by stream
+//   length, at clip batches and on one long window.
+//   clip_features keeps suffix_pointwise (64-bit, tables from the read-only
+//   cache): its suffix is a small share of its time, and phase e holds the
+//   two == on every clip batch (clip_features == prefix + stream_suffix).
 //
 // clip_features  replaces multilingual_kws_tpu/ops/pallas_fft.py::clip_frontend_features
 //                (_clip_frontend_full_kernel): the whole frontend of a clip.
@@ -100,7 +123,7 @@
 // Tables (window, twiddles, filterbank, LUTs) are small int32 device arrays
 // owned by the Python frontend object and read through the read-only cache:
 // their lookups differ from lane to lane, which __constant__ memory would
-// serialize.
+// serialize. stream_suffix stages its own, repacked, in shared memory.
 //
 // Plain C interface for ctypes: device pointers and the stream as integers;
 // each entry point returns the launch's cudaError_t.
@@ -357,8 +380,8 @@ __device__ __forceinline__ uint32_t log_scale(uint32_t x, int correction_bits, i
 // One step of the noise estimate for one channel, carried in est:
 // est' = (u64(sig << sb) * sm + u64(est) * om) >> 14. The suffix's only
 // serial part.
-__device__ __forceinline__ void noise_step(uint32_t sig, uint32_t& est, unsigned long long smc,
-                                           unsigned long long omc, int smoothing_bits) {
+__device__ __forceinline__ void noise_step(uint32_t sig, uint32_t& est, uint32_t smc, uint32_t omc,
+                                           int smoothing_bits) {
   const uint32_t su = sig << smoothing_bits;
   est = (uint32_t)(((unsigned long long)su * smc + (unsigned long long)est * omc) >> 14);
 }
@@ -394,22 +417,168 @@ __device__ __forceinline__ void store_feature(void* __restrict__ out, long long 
   }
 }
 
+// stream_suffix's tables, packed and staged in shared memory by each block:
+// WideDynamicFunction's 32 interval rows (r0, r1, r2) followed by one row
+// (lut012[x], 0, 0) for each x <= 2, whose general formula then gives
+// lut012[x]; and the log LUT as (c0, c1 - c0) per segment.
+constexpr int kWdfRows = 32 + 3;
+constexpr int kLogSegs = 128;
+
+struct SuffixSmem {
+  int4 wdf[kWdfRows];
+  int2 logp[kLogSegs];
+};
+
+__device__ __forceinline__ void stage_suffix_tables(SuffixSmem& tb, const SuffixArgs& a) {
+  for (int i = threadIdx.x; i < kWdfRows + kLogSegs; i += blockDim.x) {
+    if (i < 32) {
+      tb.wdf[i] = make_int4(__ldg(a.wdf_rows + 3 * i), __ldg(a.wdf_rows + 3 * i + 1),
+                            __ldg(a.wdf_rows + 3 * i + 2), 0);
+    } else if (i < kWdfRows) {
+      tb.wdf[i] = make_int4(__ldg(a.lut012 + i - 32), 0, 0, 0);
+    } else {
+      const int seg = i - kWdfRows, c0 = __ldg(a.log_lut + seg);
+      tb.logp[seg] = make_int2(c0, __ldg(a.log_lut + seg + 1) - c0);
+    }
+  }
+  __syncthreads();
+}
+
+// suffix_pointwise in 32-bit arithmetic, tables from shared memory; == it
+// for every input. The C code's WideDynamicFunction is int32 arithmetic on
+// int16 table rows (no intermediate reaches 2^31); the log's frac is the
+// 16 bits under the leading one, (value << clz) >> 15; loge = (kLogCoeff *
+// log2 + 2^15) >> 16 is the high word of log2 * (kLogCoeff << 16) + 2^31.
+template <bool PCAN, bool LOG>
+__device__ __forceinline__ uint32_t suffix_pointwise32(uint32_t sig, uint32_t est, const SuffixArgs& a,
+                                                       const SuffixSmem& tb) {
+  const uint32_t su = sig << a.smoothing_bits;
+  const uint32_t sub = (su - min(est, su)) >> a.smoothing_bits;
+  const uint32_t floor_ =
+      (uint32_t)(((unsigned long long)sig * (uint32_t)a.min_signal_remaining) >> 14);
+  uint32_t v = max(sub, floor_);
+  if (PCAN) {
+    const int n = __clz(est | 1u);  // est <= 2 takes its own row below
+    const int4 r = tb.wdf[est <= 2 ? 32 + (int)est : 31 - n];
+    const int frac = (int)(((est << n) >> 21) & 0x3FF);
+    int res = ((r.z * frac) >> 5) + r.y * 32;
+    res = ((res * frac + (1 << 14)) >> 15) + r.x;
+    const uint32_t snr = (uint32_t)(((unsigned long long)v * (uint32_t)res) >> a.snr_shift);
+    v = snr >= (2u << 12) ? (snr >> 6) - 64 : (snr * snr) >> 20;
+  }
+  if (!LOG) return min(v, 0xFFFFu);
+  const uint32_t value = v << a.correction_bits;
+  const int n = __clz(value | 1u);
+  const uint32_t frac = ((value << n) >> 15) & 0xFFFF;
+  const int2 p = tb.logp[frac >> 9];
+  const int rel = (p.y * (int)(frac & 511)) >> 16;
+  const uint32_t log2v = ((uint32_t)(31 - n) << 16) + frac + (uint32_t)(p.x + rel);
+  const uint32_t loge =
+      (uint32_t)(((unsigned long long)log2v * (45426u << 16) + (1ull << 31)) >> 32);
+  const uint32_t logged = ((loge << a.scale_shift) + 32768u) >> 16;
+  return value == 0 ? 0u : min(logged, 0xFFFFu);
+}
+
+// CPT (1 or 4) consecutive channels of one row: one 4- or 16-byte load
+template <int CPT>
+__device__ __forceinline__ void load_row(const int* __restrict__ p, uint32_t (&s)[CPT]) {
+  if constexpr (CPT == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    s[0] = v.x, s[1] = v.y, s[2] = v.z, s[3] = v.w;
+  } else {
+    s[0] = __ldg(p);
+  }
+}
+
+// CPT features at p: int32, or float32 on the 10/256 scale. v <= 0xFFFF,
+// so float(v) is 2^23 + v with the exponent bits or'ed in, less 2^23, and
+// the fma rounds v * 10/256 exactly once, as float(v) * 10/256 does.
+template <int CPT, bool FLOAT>
+__device__ __forceinline__ void store_row(uint32_t* __restrict__ p, const uint32_t (&v)[CPT]) {
+  uint32_t bits[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    bits[j] = FLOAT ? __float_as_uint(__fmaf_rn(__uint_as_float(0x4B000000u | v[j]), 10.0f / 256.0f,
+                                                -8388608.0f * (10.0f / 256.0f)))
+                    : v[j];
+  }
+  if constexpr (CPT == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+  } else {
+    *p = bits[0];
+  }
+}
+
+// One thread per (window, CPT consecutive channels): CPT independent noise
+// chains in registers down the window's frames, the pointwise rest of each
+// element in the same step, one vector load and one vector store per frame.
+template <int CPT, bool FLOAT, bool PCAN, bool LOG>
 __global__ void __launch_bounds__(kSuffixThreads) stream_suffix_kernel(
     const int* __restrict__ base, int windows, int stride, int frames, int channels, SuffixArgs a,
-    void* __restrict__ out, int out_is_float) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)windows * channels) return;
-  const int c = (int)(idx % channels);
-  const long long w = idx / channels;
-  const unsigned long long smc = (uint32_t)__ldg(a.sm + c), omc = (uint32_t)__ldg(a.om + c);
-  const int* row = base + w * stride * channels + c;
-  const long long out0 = w * frames * channels + c;
-  uint32_t est = 0;
-  for (int t = 0; t < frames; ++t) {
-    const uint32_t sig = (uint32_t)__ldg(row + (long long)t * channels);
-    noise_step(sig, est, smc, omc, a.smoothing_bits);
-    store_feature(out, out0 + (long long)t * channels, suffix_pointwise(sig, est, a), out_is_float);
+    void* __restrict__ out) {
+  __shared__ SuffixSmem tb;
+  stage_suffix_tables(tb, a);
+  const int groups = channels / CPT;
+  const long long idx = (long long)blockIdx.x * kSuffixThreads + threadIdx.x;
+  if (idx >= (long long)windows * groups) return;
+  const int c = (int)(idx % groups) * CPT;
+  const long long w = idx / groups;
+  uint32_t smc[CPT], omc[CPT], est[CPT], next[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    smc[j] = (uint32_t)__ldg(a.sm + c + j);
+    omc[j] = (uint32_t)__ldg(a.om + c + j);
+    est[j] = 0;
   }
+  const int* row = base + w * stride * channels + c;
+  uint32_t* o = static_cast<uint32_t*>(out) + w * frames * channels + c;
+  load_row<CPT>(row, next);
+  for (int t = 0; t < frames; ++t, o += channels) {
+    uint32_t sig[CPT], v[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) sig[j] = next[j];
+    if (t + 1 < frames) {
+      row += channels;
+      load_row<CPT>(row, next);
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      noise_step(sig[j], est[j], smc[j], omc[j], a.smoothing_bits);
+      v[j] = suffix_pointwise32<PCAN, LOG>(sig[j], est[j], a, tb);
+    }
+    store_row<CPT, FLOAT>(o, v);
+  }
+}
+
+template <int CPT, bool FLOAT, bool PCAN, bool LOG>
+int launch_suffix(const int* base, int windows, int stride, int frames, int channels,
+                  const SuffixArgs& a, void* out, cudaStream_t s) {
+  const long long threads = (long long)windows * (channels / CPT);
+  const dim3 grid((unsigned)((threads + kSuffixThreads - 1) / kSuffixThreads));
+  stream_suffix_kernel<CPT, FLOAT, PCAN, LOG><<<grid, kSuffixThreads, 0, s>>>(
+      base, windows, stride, frames, channels, a, out);
+  return (int)cudaGetLastError();
+}
+
+template <int CPT, bool FLOAT>
+int launch_suffix_for(const int* base, int windows, int stride, int frames, int channels,
+                      const SuffixArgs& a, void* out, cudaStream_t s) {
+  if (a.enable_pcan) {
+    return a.enable_log
+               ? launch_suffix<CPT, FLOAT, true, true>(base, windows, stride, frames, channels, a, out, s)
+               : launch_suffix<CPT, FLOAT, true, false>(base, windows, stride, frames, channels, a, out, s);
+  }
+  return a.enable_log
+             ? launch_suffix<CPT, FLOAT, false, true>(base, windows, stride, frames, channels, a, out, s)
+             : launch_suffix<CPT, FLOAT, false, false>(base, windows, stride, frames, channels, a, out, s);
+}
+
+template <int CPT>
+int launch_suffix_cpt(const int* base, int windows, int stride, int frames, int channels,
+                      const SuffixArgs& a, void* out, int out_is_float, cudaStream_t s) {
+  return out_is_float
+             ? launch_suffix_for<CPT, true>(base, windows, stride, frames, channels, a, out, s)
+             : launch_suffix_for<CPT, false>(base, windows, stride, frames, channels, a, out, s);
 }
 
 // Rows of the input-permuted complex substate -> their uint32 energies.
@@ -507,8 +676,8 @@ __global__ void __cluster_dims__(kClipCluster, 1, 1) __launch_bounds__(32 * kCli
   // the noise estimate: one thread per channel, the only serial chain (the
   // next frame's signal is loaded ahead of the step that needs it)
   for (int c = threadIdx.x; c < nc; c += blockDim.x) {
-    const unsigned long long smc = (uint32_t)__ldg(sa.sm + c0 + c);
-    const unsigned long long omc = (uint32_t)__ldg(sa.om + c0 + c);
+    const uint32_t smc = (uint32_t)__ldg(sa.sm + c0 + c);
+    const uint32_t omc = (uint32_t)__ldg(sa.om + c0 + c);
     uint32_t e = 0, next = sig[c];
     for (int t = 0; t < frames; ++t) {
       const uint32_t cur = next;
@@ -563,20 +732,25 @@ extern "C" int kws_stream_prefix(const int16_t* audio, int batch, long long samp
   return (int)cudaGetLastError();
 }
 
+// channels_per_thread: 1 or 4, a divisor of channels (the launch plan of
+// ops/cuda_frontend.py)
 extern "C" int kws_stream_suffix(const int* base, int windows, int stride, int frames,
                                  int channels, int smoothing_bits, int min_signal_remaining,
                                  int enable_pcan, int snr_shift, int enable_log,
                                  int correction_bits, int scale_shift, const int* sm,
                                  const int* om, const int* wdf_rows, const int* lut012,
-                                 const int* log_lut, void* out, int out_is_float, void* stream) {
-  const long long total = (long long)windows * channels;
-  const dim3 grid((unsigned)((total + kSuffixThreads - 1) / kSuffixThreads));
-  stream_suffix_kernel<<<grid, kSuffixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      base, windows, stride, frames, channels,
-      suffix_args(smoothing_bits, min_signal_remaining, enable_pcan, snr_shift, enable_log,
-                  correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut),
-      out, out_is_float);
-  return (int)cudaGetLastError();
+                                 const int* log_lut, void* out, int out_is_float,
+                                 int channels_per_thread, void* stream) {
+  const SuffixArgs a = suffix_args(smoothing_bits, min_signal_remaining, enable_pcan, snr_shift,
+                                   enable_log, correction_bits, scale_shift, sm, om, wdf_rows,
+                                   lut012, log_lut);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (channels <= 0 || channels % channels_per_thread != 0) return (int)cudaErrorInvalidValue;
+  switch (channels_per_thread) {
+    case 1: return launch_suffix_cpt<1>(base, windows, stride, frames, channels, a, out, out_is_float, s);
+    case 4: return launch_suffix_cpt<4>(base, windows, stride, frames, channels, a, out, out_is_float, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int kws_clip_features(const int16_t* audio, int batch, long long samples, int frames,

@@ -39,8 +39,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # base, windows, window_stride, frames, channels, smoothing_bits,
         # min_signal_remaining, enable_pcan, snr_shift, enable_log,
         # correction_bits, scale_shift, sm, om, wdf_rows, lut012, log_lut,
-        # out, out_is_float, stream
-        "kws_stream_suffix": [P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, I, P],
+        # out, out_is_float, channels_per_thread, stream
+        "kws_stream_suffix": [P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, I, I, P],
         # kws_stream_prefix's arguments up to fb_wgt, then kws_stream_suffix's
         # from smoothing_bits to log_lut, then out, out_is_float, stream
         "kws_clip_features": [P, I, L, I, I, I, I, I, P, P, P, P, P, P, P,
@@ -58,7 +58,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "probes": {
         # x, y, n, k, op, out, stream
         "kws_rate_chain": [P, P, L, I, I, P, P],
-        # x (float32), w transposed (bf16), rows, k, out, stream
+        # x (float32), w's swizzled image (bf16), rows, k, out, stream
         "kws_dot_chain": [P, P, L, I, P, P],
         "kws_error_string": [I],
     },

@@ -13,10 +13,14 @@ is ``stream_suffix`` in ``csrc/frontend.cu``.
 state at its first row. Streams use stride 1 (a window per hop); clip
 batches use stride F (one window per clip).
 
-On the card the kernel is bound by bytes: its (W, 49, 40) float32 output
-is ~40x the base rows it reads. One thread per (window, channel) keeps the
-49-step carry in a register and writes each feature once; the source note
-in ``csrc/frontend.cu`` has the rest.
+On the card the kernel is bound by integer instructions, not bytes: at the
+data sheet its 52 operations an element take longer than its (W, 49, 40)
+output and the base rows it reads, and the compiled loop issues more
+instructions than that (its SASS census, ``probes/sass.py``). A thread
+takes ``cpt`` consecutive channels of one window (``launch_plan``: four on
+streams of more than about 8,400 windows, one where fewer leave the card
+idle), keeps their carries in registers and writes each feature once; the
+source note in ``csrc/frontend.cu`` has the rest.
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ from . import _build
 from . import micro_int as mi
 
 FEATURE_SCALE = 10.0 / 256.0  # reference to_micro_spectrogram output scale
+# the launch plan's switch point: four channels a thread from this many of
+# that layout's threads per SM (where the two layouts' times cross in
+# chip_smoke.py phase d)
+FOUR_FROM_THREADS_PER_SM = 640
 
 
 def noise_estimate_chain_plain(x: torch.Tensor, fe) -> torch.Tensor:
@@ -74,19 +82,43 @@ def stream_suffix_plain(base, num_windows: int, stride: int, frames: int, fe, sc
     return scale_features(nr_pcan_log_plain(base[idx], fe), scaled)
 
 
-def stream_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int, fe, scaled: bool = True):
-    """(R, C) int32 base signal -> (num_windows, frames, C) features.
-    Kernel on CUDA tensors, plain version on CPU tensors."""
+def _check_windows(base: torch.Tensor, num_windows: int, stride: int, frames: int) -> None:
     if base.dim() != 2:
         raise ValueError(f"stream_suffix takes (rows, channels), got {tuple(base.shape)}")
     if num_windows > 0 and (num_windows - 1) * stride + frames > base.shape[0]:
         raise ValueError(
             f"{num_windows} windows of {frames} rows at stride {stride} overrun {base.shape[0]} rows"
         )
+
+
+def launch_plan(num_windows: int, channels: int, sms: int) -> int:
+    """Channels per thread of a ``stream_suffix`` launch on a card of
+    ``sms`` SMs: thread i takes window i // (channels / cpt) and channels
+    cpt * (i % (channels / cpt)) onwards, so each (window, channel) once.
+    Four where that layout still has ``FOUR_FROM_THREADS_PER_SM`` threads an
+    SM (16-byte loads and stores, a quarter of the threads' fixed work);
+    else one, so that few windows, down to one long clip, spread over the
+    most threads (their chains' latency, not the issue rate, sets the
+    time)."""
+    return 4 if channels % 4 == 0 and num_windows * channels // 4 >= FOUR_FROM_THREADS_PER_SM * sms else 1
+
+
+def stream_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int, fe, scaled: bool = True):
+    """(R, C) int32 base signal -> (num_windows, frames, C) features.
+    Kernel on CUDA tensors, plain version on CPU tensors."""
+    _check_windows(base, num_windows, stride, frames)
     if base.device.type == "cpu":
         return stream_suffix_plain(base, num_windows, stride, frames, fe, scaled)
     if base.device.type != "cuda":
         raise ValueError(f"stream_suffix: unsupported device {base.device}")
+    sms = torch.cuda.get_device_properties(base.device).multi_processor_count
+    return launch_suffix(base, num_windows, stride, frames, fe, scaled, launch_plan(num_windows, base.shape[1], sms))
+
+
+def launch_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int, fe, scaled: bool, cpt: int):
+    """The kernel on a CUDA base with ``cpt`` (1 or 4) channels a thread,
+    the plan's choice or, to compare the two, the caller's."""
+    _check_windows(base, num_windows, stride, frames)
     if base.dtype != torch.int32 or not base.is_contiguous():
         raise TypeError(f"stream_suffix takes contiguous int32 rows, got {base.dtype}")
     c = base.shape[1]
@@ -106,7 +138,7 @@ def stream_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int
             int(fe.enable_log), fe.correction_bits, fe.scale_shift,
             tb["sm"].data_ptr(), tb["om"].data_ptr(), tb["wdf_rows"].data_ptr(),
             tb["lut012"].data_ptr(), tb["log_lut"].data_ptr(),
-            out.data_ptr(), int(scaled), torch.cuda.current_stream(base.device).cuda_stream,
+            out.data_ptr(), int(scaled), cpt, torch.cuda.current_stream(base.device).cuda_stream,
         )
     _build.check(lib, err, "stream_suffix")
     stream_suffix.launches += 1

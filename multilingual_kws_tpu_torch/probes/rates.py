@@ -12,7 +12,8 @@ kernels ``_rate_kernel`` and ``_dot_rate_kernel``); the kernels are
   each aligned group of 32 elements rotates by one, x[i] <- x[i + 1], a warp
   shuffle on the card). ``copy`` returns x: the copy-bandwidth control.
 - ``dot_chain(x, w, k)``: k dependent passes x <- float32(bf16(x) @ bf16(w))
-  over (rows, 256) @ (256, 256) on the tensor cores (``mma.sync``).
+  over (rows, 256) @ (256, 256) on the tensor cores (``wgmma``; w staged in
+  shared memory from its swizzled image, ``swizzled_w``).
 
 ``measure_rates`` times each chain at two depths and differences them, so
 that loads, stores and the launch drop out; each class's chain must grow
@@ -101,6 +102,21 @@ def dot_chain_plain(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     return acc
 
 
+def swizzled_w(w: torch.Tensor) -> torch.Tensor:
+    """(256, 256) w -> its transpose in bf16, flat, in the layout the
+    kernel's shared memory holds (``swz`` in ``csrc/probes.cu``): w^T[n, c]
+    at (c // 64) * 256 * 64 + n * 64 + (((c // 8) % 8) ^ (n % 8)) * 8 + c % 8,
+    four 64-column slabs of 128-byte rows, each row's 16-byte chunks
+    permuted by the 128-byte swizzle, so the kernel stages it with linear
+    bulk copies."""
+    n = torch.arange(WIDTH, device=w.device)[:, None]
+    c = torch.arange(WIDTH, device=w.device)[None, :]
+    pos = (c // 64) * WIDTH * 64 + n * 64 + (((c // 8) % 8) ^ (n % 8)) * 8 + c % 8
+    img = torch.empty(WIDTH * WIDTH, dtype=torch.bfloat16, device=w.device)
+    img[pos.reshape(-1)] = w.to(torch.bfloat16).t().reshape(-1)
+    return img
+
+
 def dot_chain(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     """(rows, 256) float32 x, (256, 256) w -> (rows, 256) float32 after k
     passes. Kernel on CUDA tensors (rows a multiple of 64), plain version on
@@ -111,14 +127,22 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
         return dot_chain_plain(x, w, k)
     if x.device.type != "cuda":
         raise ValueError(f"dot_chain: unsupported device {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.shape[0] % 64:
-        raise TypeError("dot_chain takes contiguous float32 rows, a multiple of 64")
-    w_t = w.to(torch.bfloat16).t().contiguous()
+    return launch_dot_chain(x, swizzled_w(w), k)
+
+
+def launch_dot_chain(x: torch.Tensor, w_img: torch.Tensor, k: int):
+    """The kernel on CUDA x and w's image (``swizzled_w``).
+    ``measure_rates`` makes the image once and times this, so its loop
+    times the kernel and not the image's dozen small launches."""
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.dim() != 2 or x.shape[1] != WIDTH or x.shape[0] % 64:
+        raise TypeError("dot_chain takes contiguous float32 (rows, 256), rows a multiple of 64")
+    if w_img.dtype != torch.bfloat16 or w_img.numel() != WIDTH * WIDTH or w_img.device != x.device:
+        raise TypeError("dot_chain takes w's bf16 image (swizzled_w) on x's device")
     out = torch.empty_like(x)
     lib = _build.load("probes")
     with torch.cuda.device(x.device):
         err = lib.kws_dot_chain(
-            x.data_ptr(), w_t.data_ptr(), x.shape[0], k, out.data_ptr(),
+            x.data_ptr(), w_img.data_ptr(), x.shape[0], k, out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, err, "dot_chain")
@@ -169,7 +193,8 @@ def measure_rates(
     out["copy"] = {"bytes_per_s": 2 * big.numel() * 4 / (t_copy * 1e-3), "ms": t_copy}
     del big
     d1, d2 = dot_depths
-    t = {k: cuda_ms(lambda: dot_chain(xd, w, k), iters) for k in (0, d1, d2)}
+    w_img = swizzled_w(w)
+    t = {k: cuda_ms(lambda: launch_dot_chain(xd, w_img, k), iters) for k in (0, d1, d2)}
     flop_per_pass = 2 * xd.shape[0] * WIDTH * WIDTH
     xb, wb = xd.to(torch.bfloat16), w.to(torch.bfloat16)
     out["dot_bf16"] = {
