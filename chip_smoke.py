@@ -75,9 +75,26 @@ nvcc, then:
       rate above its peak, or a chain that does not grow linearly with its
       depth, fails the run. It prices every
       bound again at the measured rates, and ``stream_suffix``'s census at
-      the measured integer instruction rate. Last, one JSON line
-      ``{"kernels": [...]}`` lists all nine kernels (``stream_prefix`` twice:
-      on the stream, B2, and on a clip batch, B6).
+      the measured integer instruction rate;
+  (h) the user's workflow through the CLI (``api/cli.py``): saves (e)'s
+      fine-tuned model as an embedding checkpoint (every tensor loaded back
+      ==, and a transfer model rebuilt from it gives softmax rows == the
+      model's on the stream's first 2048 windows), lays (e)'s corpus out as
+      the CLI expects it, runs ``train`` at the JAX defaults from the
+      checkpoint (trunk and embedding head == the checkpoint's, the head
+      changed, every epoch's loss finite) and ``inference`` on (c)'s stream
+      with its ground truth, at the highest threshold from 0.9 down to 0.4
+      where the saved model, loaded and run in memory through
+      ``calculate_streaming_accuracy``, detects (detections.json in the JAX
+      schema, its detections == the in-memory run's, three calls alike), writes the
+      visualizer's files, counts the four kernels' launches over the two
+      calls, and times ``train``, ``inference`` (median of 3) and its model
+      load, the checkpoint's save and load and its size; then each
+      subcommand once in a fresh interpreter (``-X importtime``): its wall
+      and when, from where and for how long it imports ``torch._dynamo``.
+      Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
+      (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
+      B6).
 
 Kernel times are device times: the mean duration of the kernel's own
 events in a ``torch.profiler`` trace of 20 calls (``kernel_ms``), which
@@ -142,6 +159,7 @@ GRID_STEP = 10.0 / 256.0  # one step of the features' uint16 grid
 FT_BATCH = 64  # the fine-tune's batch (the JAX package's default)
 FT_SHOTS = 5
 LONG_CLIPS = 64  # 10 s clips through features_from_int16: the prefix on a clip batch (B6)
+THRESHOLDS_H = [0.9, 0.8, 0.7, 0.6, 0.5, 0.4]  # phase h: the CLI's default first
 
 
 # the work behind each kernel's reported bound: name -> (bytes, operations,
@@ -412,12 +430,13 @@ def suffix_grid(torch, fe, dev) -> int:
     return n_cmp
 
 
-def finetune_phase(torch, fe, cases, rng, then=None):
+def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     """Phase e: the fine-tune slice on the card (see the module docstring).
-    Returns the ``kernels`` entries of clip_features and augment_quantize,
-    one resident fine-tune epoch as a function (for ``--profile``), and what
-    ``then(predict, corpus)`` returns: it runs while the synthesized corpus
-    exists, on the fine-tuned ``predict_fn``."""
+    Returns one resident fine-tune epoch as a function (for ``--profile``),
+    what ``then(predict, corpus)`` returns (it runs on the fine-tuned
+    ``predict_fn``), the fine-tuned model, the synthesized corpus (under
+    ``work``) and the ``kernels`` entries of clip_features and
+    augment_quantize."""
     import copy
 
     from multilingual_kws_tpu_torch.data.dataset import AudioDataset
@@ -551,149 +570,148 @@ def finetune_phase(torch, fe, cases, rng, then=None):
           f"launches {launches_long}")
 
     # 2. the slice: transfer_learn at the JAX defaults, then one epoch of phase 2
-    with tempfile.TemporaryDirectory() as tmp:
-        corpus = synth_corpus(Path(tmp), 5, write_wav)
-        common = dict(
-            target="alpha", train_files=corpus["train"], val_files=corpus["val"],
-            unknown_files=corpus["unknown"], bg_datadir=corpus["bg_dir"], batch_size=FT_BATCH,
-            device="cuda", verbose=1,
-        )
-        model = lecun_init_(make_transfer_model(device="cpu"), seed=0).to(dev)
-        init = {k: t.clone() for k, t in model.named_parameters()}
-        cuda_clip.clip_features.launches = 0
-        cuda_augment.augment_quantize.launches = 0
+    corpus = synth_corpus(work / "corpus", 5, write_wav)
+    common = dict(
+        target="alpha", train_files=corpus["train"], val_files=corpus["val"],
+        unknown_files=corpus["unknown"], bg_datadir=corpus["bg_dir"], batch_size=FT_BATCH,
+        device="cuda", verbose=1,
+    )
+    model = lecun_init_(make_transfer_model(device="cpu"), seed=0).to(dev)
+    init = {k: t.clone() for k, t in model.named_parameters()}
+    cuda_clip.clip_features.launches = 0
+    cuda_augment.augment_quantize.launches = 0
+    t0 = time.perf_counter()
+    r1 = transfer_learn(**common, seed=0, model=model)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    after1 = {k: t.clone() for k, t in model.state_dict().items()}
+    t0 = time.perf_counter()
+    r2 = transfer_learn(
+        **common, num_epochs=1, seed=1, model=model, base_params=after1,
+        backprop_into_embedding=True, embedding_lr=1e-4,
+    )
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches = {
+        "clip_features": cuda_clip.clip_features.launches,
+        "augment_quantize": cuda_augment.augment_quantize.launches,
+    }
+
+    # 3. checks
+    steps1 = [l for ep in r1.history[0]["step_loss"] for l in ep]
+    steps2 = [l for h in r2.history for ep in h["step_loss"] for l in ep]
+    check(len(steps1) == 4 * FT_BATCH and len(steps2) == 2 * FT_BATCH, "wrong number of steps")
+    check(np.isfinite(steps1 + steps2).all(), "a non-finite loss")
+    ep_loss = r1.history[0]["loss"]
+    check(ep_loss[-1] < ep_loss[0], f"epoch losses did not fall: {ep_loss}")
+    for k, t in init.items():
+        if not k.startswith("transfer_head."):
+            check(torch.equal(after1[k], t), f"phase 1 changed {k}")
+    check(any(not torch.equal(after1[k], init[k]) for k in init if k.startswith("transfer_head.")),
+          "phase 1 left the head unchanged")
+    after2 = model.state_dict()
+    for k, t in after2.items():
+        frozen = "bn." in k or (k.startswith("trunk.") and not k.startswith("trunk.top.conv."))
+        if frozen:
+            check(torch.equal(t, after1[k]), f"phase 2 changed {k}")
+    check(not torch.equal(after2["trunk.top.conv.weight"], after1["trunk.top.conv.weight"]),
+          "phase 2 left trunk.top.conv unchanged")
+    n_train = 2 + len(steps1) + len(steps2)  # 2 calibration batches
+    check(launches["augment_quantize"] == n_train,
+          f"augment_quantize launched {launches['augment_quantize']} times for {n_train} train batches")
+    check(launches["clip_features"] >= n_train, f"clip_features launched {launches['clip_features']} times")
+
+    # one step on the card against the same step on the CPU
+    specs, labels = next(r2.dataset.train_batches(corpus["train"], FT_BATCH, 1))
+    got = {}
+    for where, m, x, y in (
+        ("cuda", copy.deepcopy(model), specs, labels),
+        ("cpu", copy.deepcopy(model).cpu(), specs.cpu(), labels.cpu()),
+    ):
+        step, _, _ = make_finetune_step(m, 1e-3, _head_and_top)
+        loss = float(step(x, y)["loss"])
+        got[where] = loss, {n: p.grad.cpu() for n, p in m.named_parameters() if p.requires_grad}
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"step loss {lg} on the card, {lc} on the CPU")
+    step_err = 0.0
+    for n, w in gc.items():
+        scale = float(w.abs().max())
+        err = float((gg[n] - w).abs().max())
+        check(torch.allclose(gg[n], w, rtol=1e-4, atol=1e-4 * scale), f"gradient of {n}: {err} (max {scale})")
+        step_err = max(step_err, err / max(scale, 1e-30))
+
+    predict = r2.predict_fn()
+    files = corpus["val"] + corpus["unknown"][:20]
+    conf, preds = evaluate_files_single_target(files, 2, predict)
+    check(preds.shape == (len(files), 3) and np.isfinite(preds).all(), "batch eval rows")
+    check(np.abs(preds.sum(1) - 1).max() < 1e-4, "batch eval rows do not sum to 1")
+    multi = evaluate_files_multiclass(corpus["val"], 2, predict)
+    check(len(multi["correct"]) + len(multi["incorrect"]) == len(corpus["val"]), "multiclass eval")
+    wave, labels30 = synth_stream(30, seed=3)
+    wav, gt = work / "stream30.wav", work / "labels30.txt"
+    write_wav(wav, wave, SR)
+    gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels30))
+    flags = StreamFlags(wav=str(wav), ground_truth=str(gt), target_keyword="alpha",
+                        detection_thresholds=[0.5, 0.9])
+    _, inferences = calculate_streaming_accuracy(predict, [flags], batch_size=BATCH, verbose=False)
+    n_w30 = -(-(30 * SR - SR) // 320)
+    check(inferences.shape == (n_w30, 3) and np.isfinite(inferences).all(), "stream inferences")
+
+    # the streaming pipeline (host batches uploaded by the prefetch
+    # thread) and the resident one give the same specs for one seed
+    pipes = []
+    for resident in (False, True):
+        ds = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], corpus["bg_dir"],
+                          corpus["unknown"], unknown_percentage=50.0, seed=7, device="cuda")
+        it = (ds.train_batches_resident(corpus["train"], FT_BATCH, 3) if resident
+              else ds.train_batches(corpus["train"], FT_BATCH, 3, prefetch=2))
+        pipes.append(list(it))
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(*pipes)),
+          "the streaming and resident pipelines differ on the card")
+    after = then(predict, corpus) if then else None
+
+    # 4. times: the step and its parts, then the kernels
+    ds = r2.dataset
+    bank_d = ds.build_resident_bank(corpus["train"])
+    draws = list(ds.host_train_indices(corpus["train"], FT_BATCH, FT_BATCH, bank_d))
+    idx, lbl, sil = ds._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+    step, _, _ = make_finetune_step(model, 1e-3, _head_only)
+
+    def transform(i):
+        return ds._train_device(bank_d["bank"], idx[i], sil[i])
+
+    def epoch():
+        for i in range(FT_BATCH):
+            step(transform(i), lbl[i])
+
+    x0 = transform(0)
+    t_transform = cuda_ms(torch, lambda: transform(0), 20)
+    # the transform's device time per batch (the union of its device
+    # events), and its two kernels' part of it
+    ev, _ = device_trace(torch, lambda: transform(0), 20, expect=("clip_features_kernel", 18))
+    n_traced = sum("clip_features_kernel" in e["name"] for e in ev)  # one per batch
+    dev_transform = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / n_traced / 1e3
+    dev_in_transform = {
+        k: sum(e["dur"] for e in ev if k in e["name"]) / n_traced / 1e3
+        for k in ("clip_features_kernel", "augment_quantize_kernel")
+    }
+    with torch.no_grad():
+        t_forward = cuda_ms(torch, lambda: model(x0), 20)
+    t_step = cuda_ms(torch, lambda: step(x0, lbl[0]), 20)
+    epoch()
+    torch.cuda.synchronize()
+    ms_steps = []
+    for _ in range(5):
         t0 = time.perf_counter()
-        r1 = transfer_learn(**common, seed=0, model=model)
-        torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t0
-        after1 = {k: t.clone() for k, t in model.state_dict().items()}
-        t0 = time.perf_counter()
-        r2 = transfer_learn(
-            **common, num_epochs=1, seed=1, model=model, base_params=after1,
-            backprop_into_embedding=True, embedding_lr=1e-4,
-        )
-        torch.cuda.synchronize()
-        wall2 = time.perf_counter() - t0
-        launches = {
-            "clip_features": cuda_clip.clip_features.launches,
-            "augment_quantize": cuda_augment.augment_quantize.launches,
-        }
-
-        # 3. checks
-        steps1 = [l for ep in r1.history[0]["step_loss"] for l in ep]
-        steps2 = [l for h in r2.history for ep in h["step_loss"] for l in ep]
-        check(len(steps1) == 4 * FT_BATCH and len(steps2) == 2 * FT_BATCH, "wrong number of steps")
-        check(np.isfinite(steps1 + steps2).all(), "a non-finite loss")
-        ep_loss = r1.history[0]["loss"]
-        check(ep_loss[-1] < ep_loss[0], f"epoch losses did not fall: {ep_loss}")
-        for k, t in init.items():
-            if not k.startswith("transfer_head."):
-                check(torch.equal(after1[k], t), f"phase 1 changed {k}")
-        check(any(not torch.equal(after1[k], init[k]) for k in init if k.startswith("transfer_head.")),
-              "phase 1 left the head unchanged")
-        after2 = model.state_dict()
-        for k, t in after2.items():
-            frozen = "bn." in k or (k.startswith("trunk.") and not k.startswith("trunk.top.conv."))
-            if frozen:
-                check(torch.equal(t, after1[k]), f"phase 2 changed {k}")
-        check(not torch.equal(after2["trunk.top.conv.weight"], after1["trunk.top.conv.weight"]),
-              "phase 2 left trunk.top.conv unchanged")
-        n_train = 2 + len(steps1) + len(steps2)  # 2 calibration batches
-        check(launches["augment_quantize"] == n_train,
-              f"augment_quantize launched {launches['augment_quantize']} times for {n_train} train batches")
-        check(launches["clip_features"] >= n_train, f"clip_features launched {launches['clip_features']} times")
-
-        # one step on the card against the same step on the CPU
-        specs, labels = next(r2.dataset.train_batches(corpus["train"], FT_BATCH, 1))
-        got = {}
-        for where, m, x, y in (
-            ("cuda", copy.deepcopy(model), specs, labels),
-            ("cpu", copy.deepcopy(model).cpu(), specs.cpu(), labels.cpu()),
-        ):
-            step, _, _ = make_finetune_step(m, 1e-3, _head_and_top)
-            loss = float(step(x, y)["loss"])
-            got[where] = loss, {n: p.grad.cpu() for n, p in m.named_parameters() if p.requires_grad}
-        (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
-        check(abs(lg - lc) <= 1e-5 * abs(lc), f"step loss {lg} on the card, {lc} on the CPU")
-        step_err = 0.0
-        for n, w in gc.items():
-            scale = float(w.abs().max())
-            err = float((gg[n] - w).abs().max())
-            check(torch.allclose(gg[n], w, rtol=1e-4, atol=1e-4 * scale), f"gradient of {n}: {err} (max {scale})")
-            step_err = max(step_err, err / max(scale, 1e-30))
-
-        predict = r2.predict_fn()
-        files = corpus["val"] + corpus["unknown"][:20]
-        conf, preds = evaluate_files_single_target(files, 2, predict)
-        check(preds.shape == (len(files), 3) and np.isfinite(preds).all(), "batch eval rows")
-        check(np.abs(preds.sum(1) - 1).max() < 1e-4, "batch eval rows do not sum to 1")
-        multi = evaluate_files_multiclass(corpus["val"], 2, predict)
-        check(len(multi["correct"]) + len(multi["incorrect"]) == len(corpus["val"]), "multiclass eval")
-        wave, labels30 = synth_stream(30, seed=3)
-        wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"
-        write_wav(wav, wave, SR)
-        gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels30))
-        flags = StreamFlags(wav=str(wav), ground_truth=str(gt), target_keyword="alpha",
-                            detection_thresholds=[0.5, 0.9])
-        _, inferences = calculate_streaming_accuracy(predict, [flags], batch_size=BATCH, verbose=False)
-        n_w30 = -(-(30 * SR - SR) // 320)
-        check(inferences.shape == (n_w30, 3) and np.isfinite(inferences).all(), "stream inferences")
-
-        # the streaming pipeline (host batches uploaded by the prefetch
-        # thread) and the resident one give the same specs for one seed
-        pipes = []
-        for resident in (False, True):
-            ds = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], corpus["bg_dir"],
-                              corpus["unknown"], unknown_percentage=50.0, seed=7, device="cuda")
-            it = (ds.train_batches_resident(corpus["train"], FT_BATCH, 3) if resident
-                  else ds.train_batches(corpus["train"], FT_BATCH, 3, prefetch=2))
-            pipes.append(list(it))
-        check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(*pipes)),
-              "the streaming and resident pipelines differ on the card")
-        after = then(predict, corpus) if then else None
-
-        # 4. times: the step and its parts, then the kernels
-        ds = r2.dataset
-        bank_d = ds.build_resident_bank(corpus["train"])
-        draws = list(ds.host_train_indices(corpus["train"], FT_BATCH, FT_BATCH, bank_d))
-        idx, lbl, sil = ds._put_batch(tuple(np.stack(a) for a in zip(*draws)))
-        step, _, _ = make_finetune_step(model, 1e-3, _head_only)
-
-        def transform(i):
-            return ds._train_device(bank_d["bank"], idx[i], sil[i])
-
-        def epoch():
-            for i in range(FT_BATCH):
-                step(transform(i), lbl[i])
-
-        x0 = transform(0)
-        t_transform = cuda_ms(torch, lambda: transform(0), 20)
-        # the transform's device time per batch (the union of its device
-        # events), and its two kernels' part of it
-        ev, _ = device_trace(torch, lambda: transform(0), 20, expect=("clip_features_kernel", 18))
-        n_traced = sum("clip_features_kernel" in e["name"] for e in ev)  # one per batch
-        dev_transform = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / n_traced / 1e3
-        dev_in_transform = {
-            k: sum(e["dur"] for e in ev if k in e["name"]) / n_traced / 1e3
-            for k in ("clip_features_kernel", "augment_quantize_kernel")
-        }
-        with torch.no_grad():
-            t_forward = cuda_ms(torch, lambda: model(x0), 20)
-        t_step = cuda_ms(torch, lambda: step(x0, lbl[0]), 20)
         epoch()
         torch.cuda.synchronize()
-        ms_steps = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            epoch()
-            torch.cuda.synchronize()
-            ms_steps.append((time.perf_counter() - t0) / FT_BATCH * 1e3)
-        ms_step = float(np.median(ms_steps))
-        # one more epoch under the profiler: the steps' device busy time and
-        # the idle share of their wall
-        ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", FT_BATCH - 2))
-        busy_epoch = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / 1e3
-        idle_epoch = 1 - busy_epoch / 1e3 / wall_epoch
+        ms_steps.append((time.perf_counter() - t0) / FT_BATCH * 1e3)
+    ms_step = float(np.median(ms_steps))
+    # one more epoch under the profiler: the steps' device busy time and
+    # the idle share of their wall
+    ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", FT_BATCH - 2))
+    busy_epoch = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / 1e3
+    idle_epoch = 1 - busy_epoch / 1e3 / wall_epoch
 
     # each kernel's device time (profiler), the wrapper loop's time per call
     # (CUDA events around 20 calls: host dispatch where that is longer than
@@ -750,7 +768,7 @@ def finetune_phase(torch, fe, cases, rng, then=None):
               for k in ("clip", "aug"))
           + f"; stream_prefix on {LONG_CLIPS} 10 s clips ({nf_long} frames each) {k_long:.5f} [plain {p_long:.3f}; "
           f"bound {b_long[0]:.5f} ({b_long[1]}); grid {grid_long}]")
-    return epoch, after, [
+    return epoch, after, model, corpus, [
         {
             "name": "clip_features", "route": "cuda",
             "source": f"{PKG}/csrc/frontend.cu",
@@ -1098,6 +1116,240 @@ def probe_phase(torch, fe, cases):
     ]
 
 
+# one CLI call in a fresh interpreter (``-X importtime``): its wall, and the
+# first import of torch._dynamo (when and from where); argv[1] is the repo
+FRESH_CLI = r"""
+import json, sys, time, traceback
+t0 = time.perf_counter()
+seen = {}
+
+
+class Spy:
+    def find_spec(self, name, path=None, target=None):
+        if name == "torch._dynamo" and not seen:
+            seen["dynamo_at_s"] = time.perf_counter() - t0
+            seen["dynamo_from"] = [
+                f"{f.filename.rsplit('site-packages/', 1)[-1]}:{f.lineno} {f.name}"
+                for f in traceback.extract_stack()[:-1] if "importlib" not in f.filename
+            ][-6:]
+        return None
+
+
+sys.meta_path.insert(0, Spy())
+sys.path.insert(0, sys.argv[1])
+from multilingual_kws_tpu_torch.api import cli
+
+seen["main_at_s"] = time.perf_counter() - t0
+cli.main(sys.argv[2:])
+import torch
+
+torch.cuda.synchronize()
+print("FRESH " + json.dumps({"wall_s": time.perf_counter() - t0, **seen}))
+"""
+
+
+class _Tee:
+    """stdout that is also kept (to read what the CLI printed)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def fresh_cli(argv):
+    """``cli.main(argv)`` in a fresh interpreter: its wall in s, when
+    ``cli.main`` began, the cumulative s of the imports of torch and
+    torch._dynamo by ``-X importtime`` (None where not imported), and when
+    and from which frames torch._dynamo was imported."""
+    out = subprocess.run([sys.executable, "-X", "importtime", "-c", FRESH_CLI, str(ROOT), *argv],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"fresh CLI call {argv[0]} failed: {out.stderr[-3000:]}")
+    res = json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("FRESH ")][-1][6:])
+    for name in ("torch", "torch._dynamo"):
+        hit = [ln for ln in out.stderr.splitlines() if ln.startswith("import time:") and ln.split("|")[-1].strip() == name]
+        res[f"{name}_import_s"] = int(hit[0].split("|")[1]) / 1e6 if hit else None
+    return res
+
+
+def cli_phase(torch, fe, model, corpus, wave, labels, work: Path):
+    """Phase h: the user's workflow through the CLI on the card. Phase e's
+    fine-tuned model saved as an embedding checkpoint; ``train`` from it at
+    the JAX defaults on phase e's corpus; ``inference`` from the result on
+    phase c's 10-minute stream; the checkpoints' round trips."""
+    import contextlib
+    import shutil
+
+    from multilingual_kws_tpu_torch.api import cli
+    from multilingual_kws_tpu_torch.api.visualizer import assemble_visualizer_data, install_site
+    from multilingual_kws_tpu_torch.ops import cuda_augment, cuda_clip, cuda_fft, cuda_frontend
+    from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
+    from multilingual_kws_tpu_torch.train import checkpoints as ckpt
+    from multilingual_kws_tpu_torch.utils.wav import write_wav
+
+    dev = torch.device("cuda")
+    model.eval()
+    counters = {"clip_features": cuda_clip.clip_features, "augment_quantize": cuda_augment.augment_quantize,
+                "stream_prefix": cuda_fft.stream_prefix, "stream_suffix": cuda_frontend.stream_suffix}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    # 1. phase e's model as an embedding checkpoint (its trunk's BN
+    # statistics were calibrated on the card in phase e)
+    emb = work / "embedding"
+    saves, loads = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_model(emb, model, {"kind": "embedding", "width_coefficient": 1.0, "depth_coefficient": 1.0})
+        saves.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        state, meta = ckpt.load_model(emb, "cuda")
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+    size = (emb / ckpt.STATE_FILE).stat().st_size
+    own = model.state_dict()
+    check(list(state) == list(own), "the embedding checkpoint's keys differ from the model's")
+    check(all(t.is_cuda and torch.equal(t, own[k]) for k, t in state.items()),
+          "a tensor of the embedding checkpoint != phase e's model's")
+    check(meta["has_batch_stats"] and meta["format"] == ckpt.FORMAT, f"embedding metadata {meta}")
+    # a transfer model rebuilt from the save: softmax rows == the in-memory model's
+    n_cmp = 2048
+    i16 = np.clip(np.trunc(wave * 32768.0), -32768, 32767).astype(np.int16)
+    windows = fe.stream_features(torch.from_numpy(i16[: SR + (n_cmp - 1) * 320]).to(dev), n_cmp)[..., None]
+    rebuilt, _ = ckpt.load_transfer_model(emb, "cuda")
+    with torch.inference_mode():
+        rows_mem, rows_ckpt = model(windows), rebuilt(windows)
+    check(torch.equal(rows_mem, rows_ckpt), "softmax rows of the model rebuilt from its checkpoint != the model's: "
+          f"{float((rows_mem - rows_ckpt).abs().max())}")
+    del rebuilt, windows
+
+    # 2. phase e's corpus as the CLI expects it
+    samples = work / "samples"
+    samples.mkdir()
+    for f in corpus["train"]:
+        shutil.copy2(f, samples)
+    unknown = Path(corpus["unknown"][0]).parent
+    (unknown / "unknown_files.txt").write_text("".join(Path(f).name + "\n" for f in corpus["unknown"]))
+    check(Path(corpus["bg_dir"]).name == "_background_noise_", "background directory name")
+
+    # 3. train at the JAX defaults (4 epochs x 1 batch, batch 64: 256 steps)
+    xfer = work / "alpha_model"
+    reset()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        cli.main(["train", "--keyword", "alpha", "--samples-dir", str(samples), "--embedding", str(emb),
+                  "--unknown-words", str(unknown), "--background-noise", corpus["bg_dir"], "--output", str(xfer),
+                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches_train = {k: counters[k].launches for k in ("clip_features", "augment_quantize")}
+
+    # 4. frozen tensors ==, the head changed, every epoch's loss finite
+    trained, tmeta = ckpt.load_model(xfer, "cuda")
+    frozen = [k for k in trained if k.split(".")[0] in ("trunk", "embedding_head")]
+    check(frozen and all(torch.equal(trained[k], state[k]) for k in frozen),
+          "train changed a trunk or embedding-head tensor")
+    check(any(not torch.equal(trained[k], state[k]) for k in trained if k.startswith("transfer_head.")),
+          "train left the head unchanged")
+    losses = [float(w.split("=")[1]) for ln in "".join(tee.parts).splitlines() if ln.startswith("epoch ")
+              for w in ln.split() if w.startswith("loss=")]
+    check(len(losses) == 4 and np.isfinite(losses).all(), f"epoch losses {losses}")
+    check(tmeta["kind"] == "transfer" and tmeta["width_coefficient"] == 1.0, f"transfer metadata {tmeta}")
+
+    # 5. inference on the 10-minute stream with its ground truth, at the
+    # highest threshold of THRESHOLDS_H where the saved model, loaded and
+    # run in memory, detects (random trunks rarely pass the CLI's 0.9)
+    wav, gt = work / "stream600.wav", work / "labels600.txt"
+    write_wav(wav, wave, SR)
+    gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels))
+    loads_xfer = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loaded, _ = ckpt.load_transfer_model(xfer, "cuda")
+        torch.cuda.synchronize()
+        loads_xfer.append(time.perf_counter() - t0)
+    flags = StreamFlags(wav=str(wav), ground_truth=str(gt), target_keyword="alpha",
+                        detection_thresholds=THRESHOLDS_H)
+    res, _ = calculate_streaming_accuracy(loaded, [flags], batch_size=8192, verbose=False)
+    found_at = {th: len(res[0][1][th][1]) for th in THRESHOLDS_H}
+    thr = next((th for th in THRESHOLDS_H if found_at[th]), None)
+    check(thr is not None, f"the trained model detects nothing at {THRESHOLDS_H}")
+    mem = sorted(res[0][1][thr][1], key=lambda d: d[1])
+    argv = ["inference", "--keywords", "alpha", "--modelpaths", str(xfer), "--wav", str(wav),
+            "--groundtruth", str(gt), "--detection-threshold", str(thr), "--device", "cuda"]
+    walls, launches_inf = [], None
+    for i in range(3):
+        reset()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--write-detections", str(work / f"detections{i}.json")])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if launches_inf is None:
+            launches_inf = {k: counters[k].launches for k in ("stream_prefix", "stream_suffix")}
+
+    # 6. detections.json: the JAX schema, and the detections of the saved
+    # model in memory
+    det = json.loads((work / "detections0.json").read_text())
+    check(set(det) == {"keywords", "detections", "min_threshold"} and det["keywords"] == ["alpha"]
+          and det["min_threshold"] == thr, f"detections.json keys {sorted(det)}")
+    tags = [d["groundtruth"] for d in det["detections"]]
+    check(set(tags) <= {"tp", "fp", "fn", "ng"}, f"groundtruth tags {set(tags)}")
+    for d in det["detections"]:
+        want = {"keyword", "time_ms", "groundtruth"} | ({"confidence"} if d["groundtruth"] != "fn" else set())
+        check(set(d) == want, f"detection keys {sorted(d)}")
+    for i in (1, 2):
+        check(json.loads((work / f"detections{i}.json").read_text()) == det, f"inference call {i} differs")
+    found = [d for d in det["detections"] if d["groundtruth"] in ("tp", "fp")]
+    check([(d["keyword"], d["time_ms"], d["confidence"]) for d in found] == [tuple(d) for d in mem],
+          f"CLI detections ({len(found)}) != the in-memory model's ({len(mem)})")
+    site = install_site(work / "visualizer")
+    files = assemble_visualizer_data(work / "visualizer" / "data", str(wav), det)
+    check(site.exists() and all(Path(f).stat().st_size > 0 for f in files), "visualizer files")
+
+    # 7. the kernels through the CLI: train featurizes and augments on the
+    # card; inference runs the stream's prefix and suffix once a chunk
+    check(all(n > 0 for n in launches_train.values()), f"train launches {launches_train}")
+    check(launches_inf == {"stream_prefix": 1, "stream_suffix": 1}, f"inference launches {launches_inf}")
+
+    # 8. the first call of a fresh process, as a user runs it
+    # (with torch's defaults: TF32 convolutions, which this script turns off)
+    fresh_inf = fresh_cli(argv + ["--write-detections", str(work / "detections_fresh.json")])
+    fresh_det = json.loads((work / "detections_fresh.json").read_text())
+    fresh_inf["same_detections"] = fresh_det == det
+    fresh_inf["tp_fp"] = sum(d["groundtruth"] in ("tp", "fp") for d in fresh_det["detections"])
+    shutil.rmtree(work / "alpha_model_fresh", ignore_errors=True)
+    fresh_train = fresh_cli(["train", "--keyword", "alpha", "--samples-dir", str(samples), "--embedding", str(emb),
+                             "--unknown-words", str(unknown), "--background-noise", corpus["bg_dir"],
+                             "--output", str(work / "alpha_model_fresh"), "--device", "cuda"])
+
+    wall = float(np.median(walls))
+    load = float(np.median(loads_xfer))
+    tp, fp, fn = (tags.count(t) for t in ("tp", "fp", "fn"))
+    print(f"phase h: embedding checkpoint of phase e's model: {size} bytes, save {float(np.median(saves)):.4f} s, "
+          f"load {float(np.median(loads)):.4f} s (medians of 3: {[round(s, 4) for s in saves]}, "
+          f"{[round(s, 4) for s in loads]}); every tensor == the model's; softmax rows of the model rebuilt "
+          f"from it == the model's on the stream's first {n_cmp} windows")
+    print(f"phase h: train (4 epochs x 64 steps at batch 64, from the embedding checkpoint, no calibration) "
+          f"{train_s:.3f} s; epoch losses {losses}; val accuracy {tmeta['details']['val_accuracy']:.4f}; "
+          f"trunk and embedding head == the embedding's; launches {launches_train}")
+    print(f"phase h: inference on the {STREAM_SECONDS} s stream {wall:.3f} s (median of 3: "
+          f"{[round(w, 4) for w in walls]}); transfer model load {load:.4f} s (median of 3, "
+          f"{load / wall:.3f} of the wall); launches {launches_inf}; the saved model in memory detects "
+          f"{found_at} (threshold: detections); the CLI at {thr}: {tp} tp, {fp} fp, {fn} fn, == the in-memory "
+          f"model's; visualizer files {[Path(f).name for f in files]}")
+    print(f"phase h: fresh process (python -X importtime): inference {json.dumps(fresh_inf)}; "
+          f"train {json.dumps(fresh_train)}")
+
+
 def main() -> int:
     import torch
 
@@ -1344,8 +1596,10 @@ def main() -> int:
     from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch as Frontend
 
     ff = Frontend(device="cuda", mode="fast")
-    finetune_epoch, fast_eval_res, finetune_kernels = finetune_phase(
-        torch, fe, cases, rng, then=lambda predict, corpus: fast_eval(torch, fe, ff, predict, corpus)
+    work = tempfile.TemporaryDirectory()  # phase e's corpus, kept for phase h
+    finetune_epoch, fast_eval_res, ft_model, corpus, finetune_kernels = finetune_phase(
+        torch, fe, cases, rng, Path(work.name),
+        then=lambda predict, corpus: fast_eval(torch, fe, ff, predict, corpus),
     )
     kernels += finetune_kernels
 
@@ -1354,6 +1608,9 @@ def main() -> int:
                           exact={"wall": wall, "found": found})
     # (g) the probes
     kernels += probe_phase(torch, fe, cases)
+    # (h) the CLI's train and inference, and the checkpoints
+    cli_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
+    work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
             wav, gt = Path(tmp) / "stream.wav", Path(tmp) / "labels.txt"

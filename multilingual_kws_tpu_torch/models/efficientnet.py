@@ -174,6 +174,8 @@ class EfficientNet(nn.Module):
         input_bias: float = 0.0,
     ):
         super().__init__()
+        self.width_coefficient = width_coefficient
+        self.depth_coefficient = depth_coefficient
         self.input_scale = input_scale
         self.input_bias = input_bias
         stem = round_filters(32, width_coefficient)

@@ -9,7 +9,8 @@ equivalent of the reference's batch_streaming_analysis.py): ``StreamFlags``,
   stay on the device.
 - The model sees one batch shape: the last batch is zero-padded and its pad
   rows' predictions are sliced off.
-- The softmax rows come to the host in one pull.
+- The softmax rows come to the host in one pull (a ``predict_fn`` may
+  return tensors or numpy arrays).
 - Audio is processed in chunks of at most ``max_chunk_length_sec``; chunks
   overlap by one clip so no window is lost at a boundary.
 """
@@ -28,6 +29,7 @@ import torch
 from .. import resolve_device
 from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
 from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL
+from ..train.checkpoints import load_transfer_model
 from ..utils.wav import read_wav
 from .detector import DetectorParams, detect_all_thresholds
 from .stats import StreamingAccuracyStats
@@ -150,7 +152,8 @@ def calculate_streaming_accuracy(
 ):
     """Reference calculate_streaming_accuracy (:50-179).
 
-    predict_fn: (B, 49, 40, 1) float32 tensor -> (B, 3) softmax, or an
+    predict_fn: (B, 49, 40, 1) float32 tensor -> (B, 3) softmax (a tensor
+    or a numpy array, as the JAX engine's contract allows), or an
     ``nn.Module`` that computes it. Returns (results list [(flags, {thresh:
     (found, found_w_conf)})], inferences)."""
     assert len({f.wav for f in flag_list}) == 1, "can only process one wav"
@@ -172,8 +175,9 @@ def calculate_streaming_accuracy(
         for windows in stream_feature_chunks(audio, sample_rate, f0, frontend, device):
             preds.extend(_predict_batches(predict_fn, windows, batch_size))
         if preds:
-            # one device -> host pull of all softmax rows
-            inferences = torch.cat(preds, dim=0).float().cpu().numpy()
+            # one device -> host pull of all softmax rows (numpy rows join
+            # as host tensors)
+            inferences = torch.cat([torch.as_tensor(p) for p in preds], dim=0).float().cpu().numpy()
         else:
             inferences = np.zeros((0, 3), np.float32)
 
@@ -219,14 +223,12 @@ def eval_stream_test(
     device="cuda",
 ):
     """Reference eval_stream_test (:197-241): result/inference memoization +
-    streaming accuracy. ``predict_fn`` is a callable or a port model; loading
-    ``st.model_path`` needs the port's checkpoint format, which does not
-    exist yet."""
-    if predict_fn is None:
-        raise NotImplementedError(
-            "eval_stream_test needs predict_fn (a callable or a port model): "
-            "the port cannot load a model from model_path yet"
-        )
+    streaming accuracy. ``predict_fn`` is a callable or a port model; without
+    it the transfer model saved at ``st.model_path`` is loaded on ``device``
+    (``train/checkpoints.load_transfer_model``, the trunk sized from its
+    metadata) and served in eval mode."""
+    if predict_fn is None and st.model_path is None:
+        raise ValueError("eval_stream_test needs predict_fn or st.model_path")
     if st.destination_result_pkl is not None and os.path.isfile(st.destination_result_pkl):
         print("results already present", st.destination_result_pkl, flush=True)
         return
@@ -236,6 +238,8 @@ def eval_stream_test(
     ):
         print("inferences already present", flush=True)
         loaded_inferences = np.load(st.destination_result_inferences)
+    if predict_fn is None and loaded_inferences is None:
+        predict_fn = model_predict_fn(load_transfer_model(st.model_path, device)[0])
 
     results = {}
     results[st.target_word], inferences = calculate_streaming_accuracy(

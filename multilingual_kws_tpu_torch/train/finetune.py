@@ -11,10 +11,13 @@ Defaults are those of the reference's run.py train (run.py:212-300): 4 epochs
 x 1 batch x batch 64, LR 1e-3, and its quirk steps_per_epoch = batch_size x
 num_batches (256 steps in all).
 
-The base weights come as a ``state_dict`` of a port model, or as the JAX
-package's Flax numpy trees (converted by ``models/convert.py``). Without
-them the trunk is fresh, and its BN statistics are first calibrated to the
-data on two train batches (``train/steps.calibrate_batch_stats``).
+The base weights come from a checkpoint (``base_model_path``, the trunk
+sized from its metadata, ``train/checkpoints.py``), as a ``state_dict`` of
+a port model, or as the JAX package's Flax numpy trees (converted by
+``models/convert.py``); the trunk and embedding head are taken with the
+trunk's BN statistics. Without them the trunk is fresh, and its BN
+statistics are first calibrated to the data on two train batches
+(``train/steps.calibrate_batch_stats``).
 
 Small training sets stay on the device (``AudioDataset.build_resident_bank``,
 chosen automatically below 4 GiB): each epoch then uploads its bank indices
@@ -33,10 +36,10 @@ import torch
 from .. import resolve_device
 from ..data.dataset import AudioDataset
 from ..models.convert import flax_to_state_dict
-from ..models.efficientnet import EfficientNetB0
 from ..models.kws_model import KWSTransferModel, lecun_init_
 from ..ops.augment import SpecAugParams
 from ..settings import ModelSettings, standard_microspeech_model_settings
+from . import checkpoints as ckpt
 from .metrics import CSVLogger
 from .steps import calibrate_batch_stats, make_finetune_step
 
@@ -130,22 +133,26 @@ def transfer_learn(
     """Few-shot fine-tune of ``target`` on ``device``; the JAX package's
     signature, plus ``device``.
 
+    base_model_path: a checkpoint of a pretrained embedding (or transfer)
+    model; its trunk and embedding head are loaded, and BN is not
+    calibrated.
     base_params: the base weights, a port ``state_dict`` or Flax trees (with
-    base_batch_stats); the trunk and embedding head are taken from them.
-    base_model_path: loading a checkpoint is not ported yet (raises).
+    base_batch_stats), when no base_model_path is given.
     model: a ``KWSTransferModel`` to train in place (e.g. a narrower trunk);
-    by default a full-width EfficientNetB0 one with Flax's default
-    initialization (``models/kws_model.lecun_init_``) from ``seed``.
+    by default one with the checkpoint's EfficientNet coefficients (B0
+    without a checkpoint) and Flax's default initialization
+    (``models/kws_model.lecun_init_``) from ``seed``.
     compute_dtype: float32 only (bf16 is not ported yet)."""
-    if base_model_path is not None:
-        raise NotImplementedError("transfer_learn cannot load base_model_path yet: pass base_params")
     if compute_dtype not in (None, "float32"):
         raise NotImplementedError(f"transfer_learn computes in float32 only, not {compute_dtype}")
     dev = resolve_device(device)
     model_settings = model_settings or standard_microspeech_model_settings(3)
     if model is None:
-        model = lecun_init_(KWSTransferModel(EfficientNetB0(), num_categories=3), seed or 0)
+        meta = ckpt.load_metadata(base_model_path) if base_model_path is not None else {}
+        model = lecun_init_(KWSTransferModel(ckpt.sized_trunk(meta), num_categories=3), seed or 0)
     model = model.to(dev).eval()
+    if base_params is None and base_model_path is not None:
+        base_params = ckpt.load_embedding_variables(base_model_path, dev)
     base = _base_state_dict(base_params, base_batch_stats)
     if base is not None:
         with torch.no_grad():

@@ -1,0 +1,135 @@
+"""The port's CLI (api/cli.py) on the CPU (``--device cpu``) against the JAX
+package's, from a narrow embedding converted from a JAX checkpoint
+(tests/test_torch_checkpoints.py builds it).
+
+- ``train`` (1 epoch x 1 batch at batch 16) writes a transfer checkpoint
+  with the metadata keys the JAX ``cmd_train`` writes; its trunk and
+  embedding head are the embedding's, bitwise (the fine-tune freezes them);
+- ``inference``, with and without ``--groundtruth``, on the same transfer
+  weights as the JAX CLI's: the same detections.json, keywords and times
+  equal and confidences within 1e-5 (the softmax tolerance of
+  tests/test_torch_stream.py; a confidence is a mean of softmax scores);
+- the visualizer's files are byte for byte the JAX package's.
+"""
+
+import json
+import shutil
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from multilingual_kws_tpu.api import cli as jax_cli
+from multilingual_kws_tpu.api import visualizer as jax_visualizer
+from multilingual_kws_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
+from multilingual_kws_tpu.train import finetune as jax_finetune
+from multilingual_kws_tpu_torch.api import cli as port_cli
+from multilingual_kws_tpu_torch.api import visualizer as port_visualizer
+from multilingual_kws_tpu_torch.train import checkpoints as ck
+from test_torch_checkpoints import DEPTH, WIDTH, build_checkpoints
+
+THRESHOLD = "0.3"
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_cli")
+    paths, emb = build_checkpoints(root)
+    samples = root / "samples"
+    samples.mkdir()
+    for i, f in enumerate(paths["corpus"]["alpha"][:5]):
+        shutil.copy2(f, samples / f"alpha_{i}.wav")
+    paths["samples"] = str(samples)
+    return root, paths, emb
+
+
+def _train_args(paths, output):
+    corpus = paths["corpus"]
+    return [
+        "train", "--keyword", "alpha", "--samples-dir", paths["samples"], "--embedding", paths["embedding"],
+        "--unknown-words", corpus["unknown_dir"], "--background-noise", corpus["bg_dir"], "--output", str(output),
+        "--num-epochs", "1", "--num-batches", "1", "--batch-size", "16",
+    ]
+
+
+def test_train_writes_a_transfer_checkpoint(ws, monkeypatch):
+    root, paths, emb = ws
+    port_cli.main(_train_args(paths, root / "alpha_model") + ["--device", "cpu"])
+    meta = ck.load_metadata(root / "alpha_model")
+    state, _ = ck.load_model(root / "alpha_model", device="cpu")
+    base, _ = ck.load_model(paths["embedding"], device="cpu")
+    frozen = [k for k in state if k.split(".")[0] in ("trunk", "embedding_head")]
+    assert frozen and all(torch.equal(state[k], base[k]) for k in frozen)
+    assert {k.split(".")[0] for k in state} == {"trunk", "embedding_head", "transfer_head"}
+    assert meta["kind"] == "transfer" and meta["target"] == "alpha"
+    assert (meta["width_coefficient"], meta["depth_coefficient"]) == (WIDTH, DEPTH)
+    assert set(meta["details"]) == {"num_epochs", "batch_size", "num_batches", "val_accuracy", "target"}
+
+    # the metadata keys the JAX cmd_train writes: its own save, with its
+    # fine-tune replaced by a stub holding the embedding's trees
+    def stub(**kw):
+        return SimpleNamespace(
+            model=SimpleNamespace(trunk=JaxEfficientNet(width_coefficient=WIDTH, depth_coefficient=DEPTH)),
+            state=SimpleNamespace(params=emb["params"], batch_stats=emb["batch_stats"]),
+            details=meta["details"],
+        )
+
+    monkeypatch.setattr(jax_finetune, "transfer_learn", stub)
+    jax_cli.main(_train_args(paths, root / "jax_alpha_model"))
+    assert set(meta) == set(json.loads((root / "jax_alpha_model" / ck.METADATA_FILE).read_text()))
+
+
+def _inference(main, modelpath, wav, out, groundtruth=None, extra=()):
+    argv = ["inference", "--keywords", "alpha", "--modelpaths", modelpath, "--wav", wav,
+            "--detection-threshold", THRESHOLD, "--write-detections", str(out), *extra]
+    if groundtruth is not None:
+        argv += ["--groundtruth", groundtruth]
+    main(argv)
+    return json.loads(Path(out).read_text())
+
+
+@pytest.mark.parametrize("with_groundtruth", [True, False], ids=["groundtruth", "no_groundtruth"])
+def test_inference_matches_jax_cli(ws, with_groundtruth):
+    root, paths, _ = ws
+    gt = paths["labels"] if with_groundtruth else None
+    tag = "gt" if with_groundtruth else "nogt"
+    got = _inference(port_cli.main, paths["transfer"], paths["wav"], root / f"port_{tag}.json", gt, ("--device", "cpu"))
+    want = _inference(jax_cli.main, paths["jax_transfer"], paths["wav"], root / f"jax_{tag}.json", gt)
+    assert got["keywords"] == want["keywords"] == ["alpha"]
+    assert got["min_threshold"] == want["min_threshold"] == float(THRESHOLD)
+    assert len(got["detections"]) == len(want["detections"]) > 0
+    tags = {"tp", "fp", "fn"} if with_groundtruth else {"ng"}
+    for g, w in zip(got["detections"], want["detections"]):
+        assert set(g) == set(w) and g["groundtruth"] in tags
+        assert {k: v for k, v in g.items() if k != "confidence"} == {k: v for k, v in w.items() if k != "confidence"}
+        if "confidence" in w:
+            np.testing.assert_allclose(g["confidence"], w["confidence"], atol=1e-5)
+
+
+def test_visualizer_files_match_jax(ws):
+    root, paths, _ = ws
+    detections = {"keywords": ["alpha"], "min_threshold": 0.5,
+                  "detections": [{"keyword": "alpha", "time_ms": 1234, "confidence": 0.75, "groundtruth": "tp"}]}
+    dirs = {}
+    for name, viz in (("port", port_visualizer), ("jax", jax_visualizer)):
+        site = root / f"viz_{name}"
+        viz.install_site(site)
+        files = viz.assemble_visualizer_data(site / "data", paths["wav"], detections, transcript=paths["labels"])
+        dirs[name] = (site, [Path(f).relative_to(site) for f in files])
+    (port_site, port_files), (jax_site, jax_files) = dirs["port"], dirs["jax"]
+    assert port_files == jax_files and len(port_files) == 4
+    for rel in port_files + [Path("index.html")]:
+        assert (port_site / rel).read_bytes() == (jax_site / rel).read_bytes(), rel
+    with pytest.raises(FileExistsError):
+        port_visualizer.assemble_visualizer_data(port_site / "data", paths["wav"], detections)
+
+
+def test_bfloat16_is_refused(ws):
+    root, paths, _ = ws
+    with pytest.raises(SystemExit, match="not ported yet"):
+        port_cli.main(_train_args(paths, root / "bf16") + ["--device", "cpu", "--compute-dtype", "bfloat16"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        port_cli.main(["inference", "--keywords", "alpha", "--modelpaths", paths["transfer"], "--wav", paths["wav"],
+                       "--device", "cpu", "--compute-dtype", "bfloat16"])

@@ -322,7 +322,7 @@ def test_phase_two_from_flax_base_weights(flax_pair, corpus):
     assert not torch.equal(sd["embedding_head.dense_0.weight"], base["embedding_head.dense_0.weight"])
 
 
-@pytest.mark.parametrize("kw", [dict(base_model_path="ckpt"), dict(compute_dtype="bfloat16")])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16")])
 def test_transfer_learn_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         transfer_learn("alpha", [], [], [], device="cpu", **kw)

@@ -16,13 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from multilingual_kws_tpu_torch.api import cli
 from multilingual_kws_tpu_torch.data import dataset
 from multilingual_kws_tpu_torch.models import kws_model
 from multilingual_kws_tpu_torch.ops import micro_torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 from multilingual_kws_tpu_torch.stream import engine
-from multilingual_kws_tpu_torch.train import evaluate, finetune
+from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune
 from multilingual_kws_tpu_torch.utils.wav import write_wav
 
 REPO = Path(__file__).resolve().parents[1]
@@ -88,6 +89,14 @@ ENTRY_POINTS = {
     "file2spec": lambda: dataset.file2spec(_SETTINGS, "no_such.wav"),
     "measure_rates": lambda: rates.measure_rates(),
     "fft_cost": lambda: fft_cost.fft_cost(),
+    "cli_inference": lambda: cli.main(["inference", "--keywords", "x", "--modelpaths", "no_such", "--wav", "no.wav"]),
+    "cli_train": lambda: cli.main(["train", "--keyword", "x", "--samples-dir", "s", "--embedding", "e",
+                                   "--unknown-words", "u", "--background-noise", "b", "--output", "o"]),
+    "load_model": lambda: checkpoints.load_model("no_such_checkpoint"),
+    "load_transfer_model": lambda: checkpoints.load_transfer_model("no_such_checkpoint"),
+    "eval_stream_test_model_path": lambda: engine.eval_stream_test(
+        engine.StreamTarget("x", "x", model_path="no_such_checkpoint", stream_flags=[_FLAGS])
+    ),
 }
 
 

@@ -154,8 +154,27 @@ def test_eval_stream_test_memoization(stream, models, tmp_path):
     res = port_engine.eval_stream_test(st, predict_fn=models[1], verbose=False, device="cpu")
     assert "alpha" in res and (tmp_path / "res.pkl").exists() and (tmp_path / "inf.npy").exists()
     assert port_engine.eval_stream_test(st, predict_fn=models[1], device="cpu") is None
-    with pytest.raises(NotImplementedError):
+    # neither a predict_fn nor a model_path to load
+    with pytest.raises(ValueError):
         port_engine.eval_stream_test(st, device="cpu")
+
+
+def test_numpy_predict_fn_matches_tensor_predict_fn(both_runs, stream, models):
+    """A predict_fn that returns numpy (the JAX engine's contract) gives
+    the rows and detections of the model itself."""
+    wav, labels = stream
+    tm = models[1]
+
+    def predict_np(specs):
+        with torch.no_grad():
+            return tm(specs).numpy()
+
+    got = port_engine.calculate_streaming_accuracy(
+        predict_np, [_flags(port_engine, wav, labels)], batch_size=BATCH, verbose=False, device="cpu"
+    )
+    want_res, want_rows = both_runs[1]
+    np.testing.assert_array_equal(got[1], want_rows)
+    assert got[0][0][1] == want_res[0][1]
 
 
 def test_predict_batches_fixed_shape():
