@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py              # what a check of the port runs
-    python3 chip_smoke.py --profile    # also: where the stream's and a fine-tune
-                                       # epoch's time goes
+    python3 chip_smoke.py --profile    # also: where the stream's, a fine-tune
+                                       # epoch's and a pretraining epoch's time goes
 
 Builds the port's CUDA kernels from ``multilingual_kws_tpu_torch/csrc`` with
 nvcc, then:
@@ -91,7 +91,31 @@ nvcc, then:
       calls, and times ``train``, ``inference`` (median of 3) and its model
       load, the checkpoint's save and load and its size; then each
       subcommand once in a fresh interpreter (``-X importtime``): its wall
-      and when, from where and for how long it imports ``torch._dynamo``.
+      and when, from where and for how long it imports ``torch._dynamo``;
+      the fresh ``inference``'s detections must equal this process's, with
+      confidences within FRESH_CONF_TOL (the port pins float32 itself);
+  (i) embedding pretraining and bf16: builds a seeded 761-label corpus (760
+      tone-sequence words of PT_CLIPS clips, and _silence_), joins an NCCL
+      process group of one rank (``parallel/mesh.py``: the step runs under
+      DistributedDataParallel), and runs ``pretrain()`` with the full-width
+      B0, 761 outputs, batch 64, PT_EPOCHS epochs of PT_STEPS steps, BN
+      calibration and best-val checkpoints, at float32 and at bfloat16. It
+      checks: losses finite and falling, every parameter and BN statistic
+      float32, every BN statistic changed, both kernels' launches (one
+      augment and one clip frontend a train and calibration batch, one clip
+      frontend a validation batch); one card step == the same step on the
+      CPU (same global batch and drop-connect masks; loss rtol 1e-5,
+      gradients rtol 1e-4, atol 1e-4 of each tensor's largest); both kernels
+      == plain at the pretraining batch. It times the step (median and best
+      of five epochs) and one profiled epoch's device busy time and idle
+      share. Then the CLI: ``pretrain`` (one short epoch), ``train
+      --embedding`` from its checkpoint and ``inference`` at ``--compute-dtype
+      bfloat16``; (c)'s stream at bfloat16 beside float32 (runs in turns:
+      windows/s; for (c)'s model the softmax rows' max |delta| <=
+      BF16_SOFTMAX_TOL, and for it and (e)'s fine-tuned model the deltas,
+      the target probability's delta percentiles and the detections); and
+      a bf16 ``transfer_learn`` at the JAX defaults with its step beside
+      (e)'s.
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
@@ -104,8 +128,8 @@ around 20 calls, ``cuda_ms``) is printed beside it as host µs per call: at
 small shapes it measures the Python wrapper's dispatch, not the kernel.
 Plain versions are timed by CUDA events.
 
-float32 throughout, with TF32 off for cuDNN and matmuls (the precision the
-port's CPU tests hold the model to). Every check that fails raises; the
+float32, with TF32 off for cuDNN and matmuls (the precision the port's CPU
+tests hold the model to), except where phase i runs bfloat16. Every check that fails raises; the
 last line of a run that passes is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or without the package beside this script, it exits 2 and
 prints no result.
@@ -160,6 +184,23 @@ FT_BATCH = 64  # the fine-tune's batch (the JAX package's default)
 FT_SHOTS = 5
 LONG_CLIPS = 64  # 10 s clips through features_from_int16: the prefix on a clip batch (B6)
 THRESHOLDS_H = [0.9, 0.8, 0.7, 0.6, 0.5, 0.4]  # phase h: the CLI's default first
+# phase h: a fresh CLI process's confidences against this process's. Both
+# compute in float32 with TF32 off; a fresh process may only pick other
+# cuDNN algorithms, whose float32 sums round in another order (~1e-6 of a
+# softmax score); 1e-5 is the CPU tests' softmax tolerance
+# (tests/test_torch_stream.py), and a confidence is a mean of such scores
+FRESH_CONF_TOL = 1e-5
+# phase i: a synthesized 761-label corpus (760 words and _silence_ at the
+# JAX defaults' silence percentage 1): PT_CLIPS one-second clips a word, the
+# last to validate; two epochs of PT_STEPS steps at batch 64
+PT_WORDS = 760
+PT_CLIPS = 3
+PT_STEPS = 20
+PT_EPOCHS = 2
+PT_BATCH = 64
+# phase i: the bf16 stream's softmax rows against the float32 ones (the JAX
+# package's contract test's bound, tests/test_models_extra.py)
+BF16_SOFTMAX_TOL = 0.05
 
 
 # the work behind each kernel's reported bound: name -> (bytes, operations,
@@ -351,7 +392,9 @@ def profile_run(torch, runs, out_dir: Path):
     substrings to group device time by). For each: three timed runs (the
     spread), then one run under torch.profiler: device busy time (the union
     of device activity), its split by kind, and the idle share of the wall
-    time. Writes each chrome trace to out_dir."""
+    time. Device activity is the trace's kernels, copies and sets (not the
+    annotations of CPU ranges that DDP and the optimizer place on the
+    device's timeline). Writes each chrome trace to out_dir."""
     from torch.profiler import ProfilerActivity, profile
 
     for name, run, kinds in runs:
@@ -366,18 +409,19 @@ def profile_run(torch, runs, out_dir: Path):
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
+        out_dir.mkdir(parents=True, exist_ok=True)
+        trace = out_dir / f"{name}_trace.json"
+        prof.export_chrome_trace(str(trace))
         spans = sorted(
-            (e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
+            (e["ts"], e["ts"] + e["dur"], e["name"])
+            for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
         )
         busy = busy_us((lo, hi) for lo, hi, _ in spans)
         by_kind = {}
         for lo, hi, event in spans:
             kind = next((k for k in kinds if k in event.lower()), "model_and_other")
             by_kind[kind] = by_kind.get(kind, 0.0) + (hi - lo) / 1e3
-        out_dir.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out_dir / f"{name}_trace.json"))
         top = sorted(
             ((e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()), reverse=True
         )[:8]
@@ -1320,11 +1364,25 @@ def cli_phase(torch, fe, model, corpus, wave, labels, work: Path):
     check(all(n > 0 for n in launches_train.values()), f"train launches {launches_train}")
     check(launches_inf == {"stream_prefix": 1, "stream_suffix": 1}, f"inference launches {launches_inf}")
 
-    # 8. the first call of a fresh process, as a user runs it
-    # (with torch's defaults: TF32 convolutions, which this script turns off)
+    # 8. the first call of a fresh process, as a user runs it: with torch's
+    # defaults (TF32 allowed for cuDNN), which the port's entry points pin to
+    # float32 themselves (exact_float32), so it detects what this process
+    # detects: the same detections, tags and times, and confidences within
+    # FRESH_CONF_TOL
     fresh_inf = fresh_cli(argv + ["--write-detections", str(work / "detections_fresh.json")])
     fresh_det = json.loads((work / "detections_fresh.json").read_text())
+
+    def tags_of(dets):
+        return [(d["keyword"], d["time_ms"], d["groundtruth"]) for d in dets]
+
+    check(tags_of(fresh_det["detections"]) == tags_of(det["detections"]),
+          f"a fresh process's detections ({len(fresh_det['detections'])}) != this process's "
+          f"({len(det['detections'])})")
+    conf_err = max((abs(a["confidence"] - b["confidence"]) for a, b in zip(fresh_det["detections"], det["detections"])
+                    if "confidence" in a), default=0.0)
+    check(conf_err <= FRESH_CONF_TOL, f"a fresh process's confidences differ by {conf_err}")
     fresh_inf["same_detections"] = fresh_det == det
+    fresh_inf["max_confidence_diff"] = conf_err
     fresh_inf["tp_fp"] = sum(d["groundtruth"] in ("tp", "fp") for d in fresh_det["detections"])
     shutil.rmtree(work / "alpha_model_fresh", ignore_errors=True)
     fresh_train = fresh_cli(["train", "--keyword", "alpha", "--samples-dir", str(samples), "--embedding", str(emb),
@@ -1346,8 +1404,371 @@ def cli_phase(torch, fe, model, corpus, wave, labels, work: Path):
           f"{load / wall:.3f} of the wall); launches {launches_inf}; the saved model in memory detects "
           f"{found_at} (threshold: detections); the CLI at {thr}: {tp} tp, {fp} fp, {fn} fn, == the in-memory "
           f"model's; visualizer files {[Path(f).name for f in files]}")
-    print(f"phase h: fresh process (python -X importtime): inference {json.dumps(fresh_inf)}; "
-          f"train {json.dumps(fresh_train)}")
+    print(f"phase h: fresh process (python -X importtime): inference {json.dumps(fresh_inf)} (detections == this "
+          f"process's, confidences within {FRESH_CONF_TOL}); train {json.dumps(fresh_train)}")
+    return {"samples": samples, "unknown": unknown, "wav": wav, "gt": gt, "threshold": thr}
+
+
+def pretrain_corpus(root: Path, seed: int, write_wav):
+    """Seeded 760-word corpus: each word a tone sequence of three
+    frequencies of its own, PT_CLIPS clips of it (tone_clip: onset, pitch and
+    loudness vary), the last of each to validate; three 8 s background noise
+    wavs."""
+    rng = np.random.default_rng(seed)
+    out = {"words": [], "train": [], "val": []}
+    for w in range(PT_WORDS):
+        word = f"w{w:03d}"
+        freqs = tuple(rng.uniform(300, 3500, 3))
+        out["words"].append(word)
+        for i in range(PT_CLIPS):
+            path = root / word / f"{word}_{i}.wav"
+            write_wav(path, tone_clip(rng, freqs), SR)
+            out["val" if i == PT_CLIPS - 1 else "train"].append(str(path))
+    for i in range(3):
+        noise = rng.normal(0, 0.05, 8 * SR) * np.repeat(rng.uniform(0.3, 2.0, 8), SR)
+        write_wav(root / "_background_noise_" / f"noise_{i}.wav", np.clip(noise, -1, 1), SR)
+    out["bg_dir"] = str(root / "_background_noise_")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli_paths, work: Path, dev="cuda"):
+    """Phase i: embedding pretraining on the card under an NCCL process
+    group of one rank (the data-parallel path: DistributedDataParallel,
+    parallel/mesh.py), at float32 and bfloat16; the CLI's pretrain -> train
+    -> inference at bfloat16; the bf16 stream beside the float32 one; a
+    bf16 fine-tune beside phase e's. Returns the float32 pretraining epoch
+    (for ``--profile``), which runs in the process group: the caller leaves
+    the group after it. ``dev`` "cpu" (gloo) rehearses the phase's control
+    flow on the CPU at small sizes, with each kernel's plain version."""
+    import copy
+
+    import torch.distributed as dist
+
+    from multilingual_kws_tpu_torch.api import cli
+    from multilingual_kws_tpu_torch.data.manifests import label_from_parent_dir, write_lines
+    from multilingual_kws_tpu_torch.models.kws_model import lecun_init_, make_embedding_model
+    from multilingual_kws_tpu_torch.ops import cuda_augment, cuda_clip, cuda_fft, cuda_frontend
+    from multilingual_kws_tpu_torch.parallel import mesh
+    from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
+    from multilingual_kws_tpu_torch.stream.tprfpr import get_groundtruth
+    from multilingual_kws_tpu_torch.train import checkpoints as ckpt
+    from multilingual_kws_tpu_torch.train.finetune import transfer_learn
+    from multilingual_kws_tpu_torch.train.pretrain import PretrainConfig, pretrain
+    from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
+    from multilingual_kws_tpu_torch.utils.wav import write_wav
+
+    dev = torch.device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    counters = {"clip_features": cuda_clip.clip_features, "augment_quantize": cuda_augment.augment_quantize,
+                "stream_prefix": cuda_fft.stream_prefix, "stream_suffix": cuda_frontend.stream_suffix}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    t0 = time.perf_counter()
+    corpus = pretrain_corpus(work / "pretrain_corpus", 11, write_wav)
+    t_corpus = time.perf_counter() - t0
+    n_clips = len(corpus["train"]) + len(corpus["val"])
+    corpus_bytes = sum(Path(f).stat().st_size for f in corpus["train"] + corpus["val"])
+    train_labels = [label_from_parent_dir(f) for f in corpus["train"]]
+    check(mesh.initialize_distributed(backend, init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0),
+          "no process group")
+    check(dist.get_backend() == backend and mesh.world_size() == 1, f"the process group is not {backend} of one rank")
+    group = mesh.default_group()
+    drop = torch.Generator(device=dev)
+    drop.manual_seed(1)
+
+    # 1. pretrain() at float32, then bfloat16
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        model0 = lecun_init_(make_embedding_model(PT_WORDS + 1, device="cpu", compute_dtype=dtype), seed=0)
+        init = {k: t.clone() for k, t in model0.state_dict().items()}
+        config = PretrainConfig(num_labels=PT_WORDS + 1, batch_size=PT_BATCH, num_epochs=PT_EPOCHS,
+                                steps_per_epoch=PT_STEPS, bn_calibration_batches=2,
+                                checkpoint_dir=str(work / f"emb_{dtype}"), compute_dtype=dtype, device=str(dev))
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        model, hist, ds = pretrain(corpus["train"], corpus["val"], corpus["words"], corpus["bg_dir"],
+                                   config=config, model=model0)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: counters[k].launches for k in ("augment_quantize", "clip_features")}
+        check(len(ds.commands) == PT_WORDS + 1 and model.classifier.out_features == PT_WORDS + 1,
+              f"{len(ds.commands)} labels")
+        check(np.isfinite(hist["loss"]).all() and np.isfinite(hist["val_loss"]).all(), f"a non-finite loss {hist}")
+        check(hist["loss"][-1] < hist["loss"][0], f"{dtype}: epoch losses did not fall: {hist['loss']}")
+        state = model.state_dict()
+        check(all(t.dtype == init[k].dtype and t.dtype in (torch.float32, torch.int64) for k, t in state.items()),
+              f"{dtype}: a tensor left float32")
+        stats = [k for k in state if k.endswith(("running_mean", "running_var"))]
+        check(all(not torch.equal(state[k].cpu(), init[k]) for k in stats), f"{dtype}: a BN statistic did not change")
+        n_train = PT_EPOCHS * (PT_STEPS + config.bn_calibration_batches)
+        n_val = PT_EPOCHS * -(-len(corpus["val"]) // PT_BATCH)
+        check(launches == {"augment_quantize": n_train, "clip_features": n_train + n_val},
+              f"{dtype}: launches {launches}, expected {n_train} and {n_train + n_val}")
+        meta = ckpt.load_metadata(work / f"emb_{dtype}")
+        check(meta["kind"] == "embedding" and meta["num_labels"] == PT_WORDS + 1, f"checkpoint metadata {meta}")
+        size = (work / f"emb_{dtype}" / ckpt.STATE_FILE).stat().st_size
+
+        # the step time on the resident bank, five epochs of PT_STEPS steps
+        step, _ = make_pretrain_step(model, flat_adam(model.parameters(), 1e-3), group)
+        bank = ds.build_resident_bank(corpus["train"])
+        draws = list(ds.host_train_indices(corpus["train"], PT_BATCH, PT_STEPS, bank, labels=train_labels,
+                                           single_target=False))
+        idx, lbl, sil = ds._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+
+        def epoch(step=step, ds=ds, bank=bank, idx=idx, lbl=lbl, sil=sil):
+            for i in range(PT_STEPS):
+                step(ds._train_device(bank["bank"], idx[i], sil[i]), lbl[i], drop)
+
+        epoch()
+        sync()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            epoch()
+            sync()
+            ms.append((time.perf_counter() - t0) / PT_STEPS * 1e3)
+        ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", PT_STEPS - 2))
+        busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / 1e3
+        runs[dtype] = {"model": model, "ds": ds, "epoch": epoch, "bank": bank, "hist": hist, "wall": wall,
+                       "launches": launches, "size": size, "ms": ms, "busy": busy, "idle": 1 - busy / 1e3 / wall_epoch,
+                       "wall_epoch": wall_epoch}
+
+    # 2. one step on the card against the same step on the CPU: the same
+    # global batch, the same drop-connect masks (one CPU generator's draws)
+    ds, bank = runs["float32"]["ds"], runs["float32"]["bank"]
+    specs, labels = next(ds.train_batches_resident(corpus["train"], PT_BATCH, 1, labels=train_labels,
+                                                   single_target=False, bank=bank))
+    got = {}
+    for where, m, x, y, grp in (("cuda", copy.deepcopy(runs["float32"]["model"]), specs, labels, group),
+                                ("cpu", copy.deepcopy(runs["float32"]["model"]).cpu(), specs.cpu(), labels.cpu(), None)):
+        step, _ = make_pretrain_step(m, flat_adam(m.parameters(), 1e-3), grp)
+        loss = float(step(x, y, torch.Generator().manual_seed(5))["loss"])
+        got[where] = loss, {n: p.grad.cpu() for n, p in m.named_parameters()}, m.trunk
+    (lg, gg, trunk), (lc, gc, _) = got["cuda"], got["cpu"]
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"pretrain step loss {lg} on the card, {lc} on the CPU")
+    # a non-residual block's last BN bias has an exact gradient of zero (its
+    # shift reaches the loss only through train-mode BNs): both sides hold
+    # rounding there, held to 1e-5 of the model's largest gradient
+    zero = {f"trunk.{b}.project_bn.bias" for b in trunk.block_names if not getattr(trunk, b).residual}
+    largest = max(float(w.abs().max()) for w in gc.values())
+    step_err = 0.0
+    for n, w in gc.items():
+        if n in zero:
+            check(max(float(w.abs().max()), float(gg[n].abs().max())) < 1e-5 * largest, f"gradient of {n}")
+            continue
+        scale = float(w.abs().max())
+        err = float((gg[n] - w).abs().max())
+        check(torch.allclose(gg[n], w, rtol=1e-4, atol=1e-4 * scale), f"pretrain gradient of {n}: {err} (max {scale})")
+        step_err = max(step_err, err / max(scale, 1e-30))
+
+    # 3. the two kernels == plain at the pretraining batch (64 clips of the
+    # corpus' bank, its augmentation parameters)
+    idx, _, sil = ds._put_batch(next(ds.host_train_indices(corpus["train"], PT_BATCH, 1, bank, labels=train_labels,
+                                                           single_target=False)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    d = cuda_augment.draw_augment_params(gen, PT_BATCH, SR, ds.bg_sizes, ds.aug_params)
+    quant = cuda_augment.augment_quantize(bank["bank"], idx, sil, ds.bg_data, d)
+    feats = cuda_clip.clip_features(quant, ds.frontend)
+    sync()
+    want = cuda_augment.augment_quantize_plain(bank["bank"], idx, sil, ds.bg_data, d)
+    diff = (quant.to(torch.int32) - want.to(torch.int32)).abs()
+    unmixed = sil | (d.volume == 0)
+    share = float((diff > 0).to(torch.float64).mean())
+    check(torch.equal(quant[unmixed], want[unmixed]) and int(diff.max()) <= 1 and share < 1e-4,
+          f"augment_quantize != plain at the pretraining batch: {int(diff.max())} on a share {share}")
+    err_feats = float((feats - cuda_clip.clip_features_plain(quant, ds.frontend)).abs().max())
+    check(err_feats == 0.0, f"clip_features != plain at the pretraining batch: {err_feats}")
+
+    # 4. the user's loop through the CLI: pretrain (one short epoch), train
+    # from its checkpoint and inference, both at bfloat16
+    mdir = work / "manifests"
+    write_lines(mdir / "commands.txt", corpus["words"])
+    write_lines(mdir / "train_files.txt", corpus["train"])
+    write_lines(mdir / "val_files.txt", corpus["val"])
+    emb = work / "emb_cli"
+    reset()
+    t0 = time.perf_counter()
+    cli.main(["pretrain", "--commands", str(mdir / "commands.txt"), "--train-files", str(mdir / "train_files.txt"),
+              "--val-files", str(mdir / "val_files.txt"), "--background-noise", corpus["bg_dir"],
+              "--output", str(emb), "--num-epochs", "1", "--steps-per-epoch", "5", "--batch-size", str(PT_BATCH),
+              "--device", str(dev)])
+    sync()
+    cli_pretrain_s = time.perf_counter() - t0
+    launches_cli = {"pretrain": {k: counters[k].launches for k in ("augment_quantize", "clip_features")}}
+    emb_meta = ckpt.load_metadata(emb)
+    check(emb_meta["kind"] == "embedding" and emb_meta["num_labels"] == PT_WORDS + 1, f"CLI checkpoint {emb_meta}")
+    xfer = work / "alpha_bf16"
+    reset()
+    t0 = time.perf_counter()
+    cli.main(["train", "--keyword", "alpha", "--samples-dir", str(cli_paths["samples"]), "--embedding", str(emb),
+              "--unknown-words", str(cli_paths["unknown"]), "--background-noise", ft_corpus["bg_dir"],
+              "--output", str(xfer), "--batch-size", str(FT_BATCH), "--compute-dtype", "bfloat16",
+              "--device", str(dev)])
+    sync()
+    cli_train_s = time.perf_counter() - t0
+    launches_cli["train"] = {k: counters[k].launches for k in ("augment_quantize", "clip_features")}
+    trained, _ = ckpt.load_model(xfer, dev)
+    emb_state, _ = ckpt.load_model(emb, dev)
+    frozen = [k for k in trained if k.split(".")[0] in ("trunk", "embedding_head")]
+    check(frozen and all(torch.equal(trained[k], emb_state[k]) for k in frozen),
+          "train --compute-dtype bfloat16 changed a tensor of the pretrained embedding")
+    check(all(t.dtype in (torch.float32, torch.int64) for t in trained.values()), "a bf16 tensor in a checkpoint")
+    reset()
+    t0 = time.perf_counter()
+    cli.main(["inference", "--keywords", "alpha", "--modelpaths", str(xfer), "--wav", str(cli_paths["wav"]),
+              "--groundtruth", str(cli_paths["gt"]), "--detection-threshold", str(cli_paths["threshold"]),
+              "--write-detections", str(work / "detections_bf16.json"), "--compute-dtype", "bfloat16",
+              "--device", str(dev)])
+    sync()
+    cli_inference_s = time.perf_counter() - t0
+    launches_cli["inference"] = {k: counters[k].launches for k in ("stream_prefix", "stream_suffix")}
+    det = json.loads((work / "detections_bf16.json").read_text())
+    check(set(det) == {"keywords", "detections", "min_threshold"}, f"detections.json keys {sorted(det)}")
+    check(launches_cli["inference"] == {"stream_prefix": 1, "stream_suffix": 1}
+          and all(n > 0 for n in launches_cli["train"].values()), f"CLI launches {launches_cli}")
+    cli_tags = {t: sum(x["groundtruth"] == t for x in det["detections"]) for t in ("tp", "fp", "fn")}
+
+    # 5. bf16 on phase c's stream beside float32: phase c's model, runs in
+    # turns (walls), its softmax rows held to BF16_SOFTMAX_TOL; and phase e's
+    # fine-tuned model, reported: its scores spread, so its detections say
+    # more (phase c's random model scores every window near its lifted 0.5,
+    # and a shift of 1e-3 moves all of them across a threshold), but its
+    # trunk is random with BN calibrated to the data, a deep random network
+    # that amplifies rounding, as the JAX package's bf16 does too; the
+    # contract's bound holds for trained weights (the JAX package's record:
+    # 0.021 with a trained checkpoint) and for phase c's
+    flags = StreamFlags(wav=str(cli_paths["wav"]), ground_truth=str(cli_paths["gt"]), target_keyword="alpha",
+                        detection_thresholds=THRESHOLDS_H)
+    gt_rows = [(lab, float(ms)) for lab, ms in (ln.split(", ") for ln in Path(cli_paths["gt"]).read_text().splitlines())]
+
+    def bf16_of(m):
+        m16 = copy.deepcopy(m)
+        m16.trunk.compute_dtype = torch.bfloat16
+        return m16
+
+    def stream(m):
+        sync()
+        t0 = time.perf_counter()
+        res, inf = calculate_streaming_accuracy(m, [flags], batch_size=BATCH, verbose=False, device=str(dev))
+        sync()
+        detector = {}
+        for th, (_, with_conf) in res[0][1].items():
+            tags = [x["groundtruth"] for x in get_groundtruth(sorted(with_conf, key=lambda x: x[1]), ["alpha"], gt_rows)]
+            detector[th] = {t: tags.count(t) for t in ("tp", "fp", "fn")}
+        return time.perf_counter() - t0, inf, detector
+
+    models = {"phase c": {"float32": stream_model, "bfloat16": bf16_of(stream_model)},
+              "phase e": {"float32": ft_model, "bfloat16": bf16_of(ft_model)}}
+    calculate_streaming_accuracy(models["phase c"]["bfloat16"], [dataclasses.replace(flags, max_chunk_length_sec=30)],
+                                 batch_size=BATCH, verbose=False, device=str(dev))
+    walls = {"float32": [], "bfloat16": []}
+    bf16_rows = {}
+    for name, pair in models.items():
+        got = {}
+        for _ in range(5 if name == "phase c" else 1):
+            for dtype, m in pair.items():
+                wall, inf, detector = stream(m)
+                got[dtype] = inf, detector
+                if name == "phase c":
+                    walls[dtype].append(wall)
+        (r32, det32), (r16, det16) = got["float32"], got["bfloat16"]
+        check(r16.dtype == np.float32 and r16.shape == r32.shape and np.isfinite(r16).all(), f"{name}: bf16 rows")
+        check(np.abs(r16.sum(1) - 1).max() < 1e-4, f"{name}: bf16 softmax rows do not sum to 1")
+        max_delta = float(np.abs(r16 - r32).max())
+        check(name != "phase c" or max_delta <= BF16_SOFTMAX_TOL,
+              f"{name}: bf16 softmax rows differ from float32 by {max_delta}")
+        bf16_rows[name] = {
+            "max_abs_softmax_delta": max_delta,
+            "target_prob_delta_percentiles": {
+                f"p{q}": float(np.percentile(np.abs(r16[:, 2] - r32[:, 2]), q)) for q in (50, 90, 99, 99.9)},
+            "f32_target_prob_percentiles": {f"p{q}": float(np.percentile(r32[:, 2], q)) for q in (1, 50, 99)},
+            "detector": {"float32": det32, "bfloat16": det16},
+        }
+    n_w = r32.shape[0]
+
+    # 6. a bf16 fine-tune at the JAX defaults (fresh B0, BN calibration),
+    # its steps beside phase e's float32 ones, in turns
+    common = dict(target="alpha", train_files=ft_corpus["train"], val_files=ft_corpus["val"],
+                  unknown_files=ft_corpus["unknown"], bg_datadir=ft_corpus["bg_dir"], batch_size=FT_BATCH,
+                  device=str(dev), verbose=0)
+    t0 = time.perf_counter()
+    ft16 = transfer_learn(**common, seed=0, compute_dtype="bfloat16")
+    sync()
+    ft_wall = time.perf_counter() - t0
+    check(ft16.model.trunk.compute_dtype == torch.bfloat16, "transfer_learn did not build a bf16 trunk")
+    ft_steps = [x for ep in ft16.history[0]["step_loss"] for x in ep]
+    check(len(ft_steps) == 4 * FT_BATCH and np.isfinite(ft_steps).all(), "bf16 fine-tune losses")
+    ft_loss = ft16.history[0]["loss"]
+    check(ft_loss[-1] < ft_loss[0], f"bf16 fine-tune epoch losses did not fall: {ft_loss}")
+    from multilingual_kws_tpu_torch.train.finetune import _head_only
+    from multilingual_kws_tpu_torch.train.steps import make_finetune_step
+
+    fds = ft16.dataset
+    fbank = fds.build_resident_bank(ft_corpus["train"])
+    fdraws = list(fds.host_train_indices(ft_corpus["train"], FT_BATCH, FT_BATCH, fbank))
+    fidx, flbl, fsil = fds._put_batch(tuple(np.stack(a) for a in zip(*fdraws)))
+    fstep, _, _ = make_finetune_step(ft16.model, 1e-3, _head_only)
+
+    def ft16_epoch():
+        for i in range(FT_BATCH):
+            fstep(fds._train_device(fbank["bank"], fidx[i], fsil[i]), flbl[i])
+
+    ft16_epoch()
+    ft_ms = {"float32": [], "bfloat16": []}
+    for _ in range(5):
+        for dtype, run in (("float32", finetune_epoch), ("bfloat16", ft16_epoch)):
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            ft_ms[dtype].append((time.perf_counter() - t0) / FT_BATCH * 1e3)
+
+    for dtype, r in runs.items():
+        print(f"phase i: pretrain() at {dtype}: full-width B0, {PT_WORDS + 1} outputs, batch {PT_BATCH}, {PT_EPOCHS} epochs x "
+              f"{PT_STEPS} steps, BN calibration 2 batches, under {backend} (world size 1, DistributedDataParallel): "
+              f"{r['wall']:.2f} s; epoch losses {r['hist']['loss']}, val accuracy {r['hist']['val_accuracy']}; "
+              f"launches {r['launches']}; checkpoint {r['size']} bytes; step {float(np.median(r['ms'])):.3f} ms "
+              f"(median of 5 epochs of {PT_STEPS}, best {min(r['ms']):.3f}: {[round(m, 3) for m in r['ms']]}); "
+              f"one profiled epoch: wall {r['wall_epoch']:.4f} s, device busy {r['busy']:.3f} ms, idle share "
+              f"{r['idle']:.4f}")
+    print(f"phase i: corpus of {n_clips} clips ({len(corpus['train'])} to train, {len(corpus['val'])} to validate; "
+          f"{corpus_bytes} bytes) written in {t_corpus:.2f} s; card vs CPU step: loss {lg:.7f} / {lc:.7f}, max "
+          f"gradient error {step_err:.2e} of each tensor's largest ({len(zero)} zero-gradient biases within 1e-5 of "
+          f"the largest); augment_quantize at the pretraining batch: max |kernel - plain| {int(diff.max())} on a "
+          f"share {share}; clip_features == plain")
+    print(f"phase i: CLI pretrain (1 epoch x 5 steps) {cli_pretrain_s:.2f} s, train --compute-dtype bfloat16 from "
+          f"its checkpoint {cli_train_s:.2f} s, inference --compute-dtype bfloat16 {cli_inference_s:.3f} s at "
+          f"{cli_paths['threshold']}: {cli_tags}; launches {launches_cli}")
+    print(f"phase i: stream at bf16 beside float32 ({n_w} windows, phase c's model, runs in turns): " + "; ".join(
+        f"{dtype} {float(np.median(w)):.4f} s median, {n_w / float(np.median(w)):.1f} windows/s (best "
+        f"{n_w / min(w):.1f}): {[round(x, 4) for x in w]}" for dtype, w in walls.items()))
+    for name, r in bf16_rows.items():
+        bound = f"bound {BF16_SOFTMAX_TOL}" if name == "phase c" else "reported"
+        print(f"phase i: bf16 vs float32 on the stream, {name}'s model ({bound}; detections tp/fp/fn by "
+              f"threshold): {json.dumps(r)}")
+    print(f"phase i: transfer_learn at bfloat16 (JAX defaults, fresh B0): {ft_wall:.2f} s, epoch losses {ft_loss}; "
+          f"fine-tune step ms, in turns: " + "; ".join(
+              f"{dtype} {float(np.median(v)):.3f} (best {min(v):.3f}: {[round(x, 3) for x in v]})"
+              for dtype, v in ft_ms.items()))
+    return runs["float32"]["epoch"]
 
 
 def main() -> int:
@@ -1609,7 +2030,9 @@ def main() -> int:
     # (g) the probes
     kernels += probe_phase(torch, fe, cases)
     # (h) the CLI's train and inference, and the checkpoints
-    cli_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
+    cli_paths = cli_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
+    # (i) pretraining, and bf16 on the stream, the CLI and the fine-tune
+    pretrain_epoch = pretrain_phase(torch, model, ft_model, corpus, finetune_epoch, cli_paths, Path(work.name))
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -1625,9 +2048,13 @@ def main() -> int:
                      ("stream_prefix", "stream_suffix", "memcpy", "memset")),
                     ("finetune_epoch", finetune_epoch,
                      ("augment_quantize", "clip_features", "multi_tensor_apply", "wgrad", "memcpy", "memset")),
+                    ("pretrain_epoch", pretrain_epoch,
+                     ("augment_quantize", "clip_features", "multi_tensor_apply", "wgrad", "dgrad", "nccl",
+                      "memcpy", "memset")),
                 ],
                 ROOT / "chiprun_out",
             )
+    torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

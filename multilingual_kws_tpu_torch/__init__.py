@@ -6,6 +6,8 @@ nothing of it (nor JAX). Entry points take ``device`` and default to
 ``device="cpu"``, where every CUDA kernel's plain PyTorch version runs.
 """
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,19 @@ def resolve_device(device="cuda") -> torch.device:
             'pass device="cpu" to run the plain PyTorch path'
         )
     return dev
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Inside the block, float32 convolutions (cuDNN) and matmuls run in
+    float32, not TF32; the previous settings come back after it. The port's
+    entry points run the model under it, so a float32 model computes on the
+    card what the CPU tests hold it to, whatever the process's defaults
+    (torch lets cuDNN use TF32 unless told otherwise). bfloat16 compute is
+    unaffected."""
+    conv, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, matmul

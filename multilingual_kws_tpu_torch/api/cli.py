@@ -1,4 +1,5 @@
-"""The command line: ``train`` and ``inference``, as the reference's run.py.
+"""The command line: ``train`` and ``inference``, as the reference's run.py,
+and ``pretrain``, as its embedding-training scripts.
 
 Usage:
   python -m multilingual_kws_tpu_torch.api.cli train --keyword mask \
@@ -6,15 +7,24 @@ Usage:
       --background-noise _background_noise_/ --output mask_model/
   python -m multilingual_kws_tpu_torch.api.cli inference --keywords mask \
       --modelpaths mask_model --wav radio.wav --write-detections out.json
+  python -m multilingual_kws_tpu_torch.api.cli pretrain --commands commands.txt \
+      --train-files train_files.txt --val-files val_files.txt \
+      --background-noise _background_noise_/ --output emb_ckpt/
+  torchrun --nproc_per_node 4 -m multilingual_kws_tpu_torch.api.cli pretrain ...
 
-Counterpart of the ``train`` and ``inference`` subcommands of
+Counterpart of the ``train``, ``inference`` and ``pretrain`` subcommands of
 ``multilingual_kws_tpu/api/cli.py`` (reference multilingual_kws/run.py:25-304),
 with the same flags, defaults and artifacts: sample validation, the
 ``_background_noise_`` name check, the ``unknown_files.txt`` manifest,
 transfer_learn's defaults (4 epochs x 1 batch x batch 64, LR 1e-3, unknown
-50 %), the detections.json schema and the visualizer layout. Checkpoints are
-this package's (``train/checkpoints.py``). ``--device`` (default ``cuda``)
-picks the card or the CPU; float32 is the only compute dtype so far.
+50 %), the detections.json schema, the visualizer layout, and pretraining's
+manifests (commands.txt, train_files.txt, val_files.txt). Checkpoints are
+this package's (``train/checkpoints.py``); an embedding checkpoint written by
+``pretrain`` is what ``train --embedding`` loads. ``--device`` (default
+``cuda``) picks the card or the CPU; ``--compute-dtype bfloat16`` runs the
+trunk in bf16 (parameters, embedding and heads stay float32), and float32
+runs without TF32. ``pretrain`` under torchrun is data-parallel over the
+processes (``parallel/mesh.py``; ``--batch-size`` is the global batch).
 """
 
 from __future__ import annotations
@@ -36,11 +46,6 @@ def _require(cond: bool, msg: str) -> None:
         raise SystemExit(f"error: {msg}")
 
 
-def _float32_only(args) -> None:
-    _require(args.compute_dtype == "float32",
-             f"--compute-dtype {args.compute_dtype} is not ported yet: this package computes in float32")
-
-
 def cmd_train(args) -> None:
     from ..data.manifests import read_unknown_files
     from ..settings import standard_microspeech_model_settings
@@ -49,7 +54,6 @@ def cmd_train(args) -> None:
     from ..utils.wav import validate_sample_wav
 
     device = resolve_device(args.device)
-    _float32_only(args)
     background_noise = Path(args.background_noise)
     _require(
         background_noise.name == "_background_noise_",
@@ -85,6 +89,7 @@ def cmd_train(args) -> None:
         base_model_path=args.embedding,
         unknown_percentage=args.unknown_percentage,
         bg_datadir=args.background_noise,
+        compute_dtype=args.compute_dtype,
         device=device,
     )
     print(f"saving model to {args.output}")
@@ -108,7 +113,6 @@ def cmd_inference(args) -> None:
     from .visualizer import assemble_visualizer_data, install_site
 
     device = resolve_device(args.device)
-    _float32_only(args)
     keywords = args.keywords
     modelpaths = args.modelpaths.split(",")
     _require(
@@ -147,7 +151,7 @@ def cmd_inference(args) -> None:
             st = StreamTarget(
                 target_lang=args.language, target_word=keyword, model_path=modelpath, stream_flags=[flags]
             )
-            results = eval_stream_test(st, device=device)
+            results = eval_stream_test(st, compute_dtype=args.compute_dtype, device=device)
             unsorted_detections.extend(results[keyword][0][1][args.detection_threshold][1])
     finally:
         if created_temp_gt:
@@ -209,6 +213,73 @@ def serve_visualizer(directory, port: int) -> None:
         print("\nTerminating visualization server")
 
 
+def cmd_pretrain(args) -> None:
+    """Embedding pretraining from manifests (the reference's
+    train_monolingual/multilingual_embedding.py scripts): reads the
+    commands.txt / train_files.txt / val_files.txt contract
+    (train_multilingual_embedding.py:27-32) and runs ``train/pretrain.py``
+    with best-val checkpointing and CSV metrics; data-parallel when the
+    environment describes a process group (torchrun)."""
+    from ..data.manifests import read_commands, read_lines
+    from ..models.efficientnet import EfficientNet
+    from ..models.kws_model import KWSEmbeddingModel, lecun_init_
+    from ..parallel.mesh import initialize_distributed
+    from ..train.checkpoints import load_model
+    from ..train.pretrain import PretrainConfig, pretrain
+
+    device = resolve_device(args.device)
+    initialize_distributed("nccl" if device.type == "cuda" else "gloo")
+    commands = read_commands(args.commands)
+    train_files = read_lines(args.train_files)
+    val_files = read_lines(args.val_files)
+    unknown_files = read_lines(args.unknown_files) if args.unknown_files else []
+    config = PretrainConfig(
+        num_labels=len(commands) + 2,
+        batch_size=args.batch_size,
+        num_epochs=args.num_epochs,
+        learning_rate=args.learning_rate,
+        silence_percentage=args.silence_percentage,
+        unknown_percentage=args.unknown_percentage,
+        shuffle_seed=args.seed,
+        csvlog_dest=args.csvlog,
+        checkpoint_dir=args.output,
+        history_dest=args.history,
+        steps_per_epoch=args.steps_per_epoch,
+        compute_dtype=args.compute_dtype,
+        device=str(device),
+    )
+    resume_params = None
+    if args.resume:
+        resume_params, rmeta = load_model(args.resume, device)
+        print(f"resuming from {args.resume} (epoch {rmeta.get('epoch')}, "
+              f"val_accuracy {rmeta.get('val_accuracy')})")
+
+    model = None
+    if args.width_coefficient != 1.0 or args.depth_coefficient != 1.0:
+        has_silence = config.silence_percentage > 0
+        has_unknown = bool(unknown_files) and config.unknown_percentage > 0
+        trunk = EfficientNet(width_coefficient=args.width_coefficient, depth_coefficient=args.depth_coefficient,
+                             compute_dtype=args.compute_dtype)
+        model = lecun_init_(KWSEmbeddingModel(len(commands) + int(has_silence) + int(has_unknown), trunk), args.seed)
+    _, history, _ = pretrain(
+        train_files,
+        val_files,
+        commands=commands,
+        background_data_dir=args.background_noise,
+        unknown_files=unknown_files,
+        config=config,
+        model=model,
+        resume_params=resume_params,
+        checkpoint_meta={
+            "kind": "embedding",
+            "width_coefficient": args.width_coefficient,
+            "depth_coefficient": args.depth_coefficient,
+        },
+    )
+    best = max(history["val_accuracy"]) if history["val_accuracy"] else float("nan")
+    print(f"best val_accuracy {best:.4f}; checkpoints in {args.output}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="multilingual_kws_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -226,7 +297,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--batch-size", type=int, default=64)
     t.add_argument("--unknown-percentage", type=float, default=50.0)
     t.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="trunk compute dtype; bfloat16 is not ported yet and exits with an error")
+                   help="trunk conv/dense/BN compute dtype (params, embedding and softmax head stay float32)")
     t.add_argument("--device", default="cuda", help="torch device (cuda, or cpu)")
     t.set_defaults(fn=cmd_train)
 
@@ -245,9 +316,36 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--write-detections", default=None)
     i.add_argument("--overwrite", action="store_true")
     i.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="trunk compute dtype; bfloat16 is not ported yet and exits with an error")
+                   help="trunk compute dtype for streaming inference (softmax rows stay float32)")
     i.add_argument("--device", default="cuda", help="torch device (cuda, or cpu)")
     i.set_defaults(fn=cmd_inference)
+
+    pt = sub.add_parser("pretrain", help="embedding-model pretraining from manifests")
+    pt.add_argument("--commands", required=True, help="commands.txt")
+    pt.add_argument("--train-files", required=True, help="train_files.txt")
+    pt.add_argument("--val-files", required=True, help="val_files.txt")
+    pt.add_argument("--unknown-files", default=None)
+    pt.add_argument("--background-noise", required=True)
+    pt.add_argument("--output", required=True, help="checkpoint directory")
+    pt.add_argument("--num-epochs", type=int, default=40)
+    pt.add_argument("--batch-size", type=int, default=64, help="the global batch (over all processes)")
+    pt.add_argument("--learning-rate", type=float, default=1e-3)
+    pt.add_argument("--silence-percentage", type=float, default=1.0)
+    pt.add_argument("--unknown-percentage", type=float, default=0.0)
+    pt.add_argument("--steps-per-epoch", type=int, default=None)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--csvlog", default=None)
+    pt.add_argument("--history", default=None)
+    pt.add_argument("--resume", default=None,
+                    help="checkpoint dir to resume from (load params + BN stats, keep training with a fresh "
+                         "optimizer: the reference's load+recompile pattern)")
+    pt.add_argument("--width-coefficient", type=float, default=1.0, help="EfficientNet width scaling (1.0 = B0)")
+    pt.add_argument("--depth-coefficient", type=float, default=1.0, help="EfficientNet depth scaling (1.0 = B0)")
+    pt.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="conv/dense/BN compute dtype (params, BN stats, embedding, logits and optimizer "
+                         "stay float32)")
+    pt.add_argument("--device", default="cuda", help="torch device (cuda, or cpu)")
+    pt.set_defaults(fn=cmd_pretrain)
     return p
 
 

@@ -22,6 +22,14 @@ host batch uploaded per step, prefetched on a thread) and the resident one
 through one device transform (``augment_featurize``) and consume the
 generator alike, so one seed gives them identical specs.
 
+Data parallelism (``shard=(rank, world_size)``, ``parallel/mesh.py``): every
+process makes the same host draw of the global batch and the same device
+draws (augmentation, SpecAugment) for all of its rows, from the same seed,
+and keeps its own contiguous block of rows (``mesh.local_rows``): it uploads
+only those clips (or bank indices), and the augment kernel and the frontend
+run on those rows only. A process's rows are therefore the rows one process
+would make of the global batch.
+
 Clips are read with ``utils/wav.read_wav_int16``.
 """
 
@@ -36,10 +44,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.augment import AugmentParams, SpecAugParams, pad_background_bank, spec_augment
-from ..ops.cuda_augment import augment_quantize, draw_augment_params
+from ..ops.augment import AugmentParams, SpecAugParams, SpecMaskDraws, apply_spec_masks, draw_spec_masks, pad_background_bank
+from ..ops.cuda_augment import AugmentDraws, augment_quantize, draw_augment_params
 from ..ops.micro_exact import FrontendConfig
 from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
+from ..parallel.mesh import local_rows
 from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL, ModelSettings
 from ..utils.wav import read_wav, read_wav_int16
 
@@ -59,17 +68,24 @@ def _shared_frontend(config: FrontendConfig, device: str) -> MicroFrontendTorch:
     return MicroFrontendTorch(config, device=device)
 
 
-def augment_featurize(frontend, aug_params: AugmentParams, gen, fg_bank, rows, is_silence, bg_data, bg_sizes):
+def augment_featurize(
+    frontend, aug_params: AugmentParams, gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep=slice(None)
+):
     """The whole train-batch device transform: (B,) rows of the int16
     ``fg_bank`` -> (B, 49, 40, 1) float32 specs.
 
     Draws the augmentation, runs ``augment_quantize`` (which reads the rows
     from the bank), the frontend on the int16 result and SpecAugment, all
-    from ``gen``."""
-    draws = draw_augment_params(gen, rows.shape[0], fg_bank.shape[1], bg_sizes, aug_params)
-    quant = augment_quantize(fg_bank, rows, is_silence, bg_data, draws)
+    from ``gen``. ``keep`` selects a process's rows of the global batch
+    (data parallelism): the draws are made for all B rows, and the kernels
+    run on the kept rows only (``rows`` outside ``keep`` are not read)."""
+    b = rows.shape[0]
+    draws = draw_augment_params(gen, b, fg_bank.shape[1], bg_sizes, aug_params)
+    draws = AugmentDraws(*(d[keep] for d in draws))
+    quant = augment_quantize(fg_bank, rows[keep], is_silence[keep], bg_data, draws)
     specs = frontend.features_from_int16(quant)
-    return spec_augment(gen, specs, aug_params.spec_aug)[..., None]
+    masks = draw_spec_masks(gen, b, specs.shape[1], specs.shape[2], aug_params.spec_aug)
+    return apply_spec_masks(specs, SpecMaskDraws(*(m[keep] for m in masks)))[..., None]
 
 
 def load_background_bank(background_dir) -> Tuple[np.ndarray, np.ndarray]:
@@ -92,7 +108,9 @@ class AudioDataset:
 
     Parameters mirror the reference constructor (input_data.py:174-213);
     ``device`` is where batches are augmented and featurized (``"cuda"`` by
-    default: it raises without a card unless given ``"cpu"``)."""
+    default: it raises without a card unless given ``"cpu"``). ``shard`` =
+    (rank, world size): the training batches hold that rank's rows of each
+    global batch (module docstring); eval batches are whole."""
 
     # default device-memory budget for transfer_learn's automatic choice of
     # the resident pipeline (the JAX package's value)
@@ -113,8 +131,10 @@ class AudioDataset:
         seed: Optional[int] = None,
         frontend: Optional[MicroFrontendTorch] = None,
         device="cuda",
+        shard: Tuple[int, int] = (0, 1),
     ):
         self.device = resolve_device(device)
+        self.shard = shard
         self.model_settings = model_settings
         self.unknown_files = list(unknown_files)
         self.unknown_percentage = unknown_percentage
@@ -157,11 +177,15 @@ class AudioDataset:
 
     # -- device functions -----------------------------------------------------
 
-    def _train_device(self, fg_bank, rows, is_silence):
+    def _train_device(self, fg_bank, rows, is_silence, keep=slice(None)):
         return augment_featurize(
             self.frontend, self.aug_params, self.gen, fg_bank, rows, is_silence,
-            self.bg_data, self.bg_sizes,
+            self.bg_data, self.bg_sizes, keep,
         )
+
+    def _keep(self, batch_size: int) -> slice:
+        """This process's rows of a global training batch."""
+        return local_rows(batch_size, self.shard)
 
     def _eval_device(self, wav_int16):
         return self.frontend.features_from_int16(wav_int16)[..., None]
@@ -213,18 +237,22 @@ class AudioDataset:
         input_data.py:447-471); otherwise labels come from the parallel
         ``labels`` list. prefetch > 0 assembles host batches, and uploads
         them, that many steps ahead on a background thread
-        (data/pipeline.py); the batches are the same either way."""
+        (data/pipeline.py); the batches are the same either way. Under a
+        ``shard`` only this process's clips are read and uploaded."""
+        keep = self._keep(batch_size)
         host = self.host_train_batches(
-            files, batch_size, num_steps, labels=labels, single_target=single_target
+            files, batch_size, num_steps, labels=labels, single_target=single_target, keep=keep
         )
         transfer = map(self._put_batch, host)
         if prefetch > 0:
             from .pipeline import prefetch as _prefetch
 
             transfer = _prefetch(transfer, size=prefetch)
+        # the global batch's rows, numbered so that the kept ones index the
+        # uploaded clips
+        rows = torch.arange(-keep.start, batch_size - keep.start, dtype=torch.int32, device=self.device)
         for wav, lbl, sil in transfer:
-            rows = torch.arange(wav.shape[0], dtype=torch.int32, device=self.device)
-            yield self._train_device(wav, rows, sil), lbl
+            yield self._train_device(wav, rows, sil, keep), lbl
 
     def build_resident_bank(self, files: Sequence[str]):
         """Upload every unique training clip (plus unknowns) once as an
@@ -278,11 +306,12 @@ class AudioDataset:
         (build_resident_bank): same draws, same augmentation, same specs, but
         each step uploads only (indices, labels, silence flags)."""
         bank = bank or self.build_resident_bank(files)
-        for batch in self.host_train_indices(
+        keep = self._keep(batch_size)
+        for idx, lbl, sil in self.host_train_indices(
             files, batch_size, num_steps, bank, labels=labels, single_target=single_target
         ):
-            idx, lbl, sil = self._put_batch(batch)
-            yield self._train_device(bank["bank"], idx, sil), lbl
+            idx, lbl, sil = self._put_batch((idx, lbl[keep], sil))
+            yield self._train_device(bank["bank"], idx, sil, keep), lbl
 
     def host_train_batches(
         self,
@@ -291,15 +320,19 @@ class AudioDataset:
         num_steps: int,
         labels: Optional[Sequence[str]] = None,
         single_target: bool = True,
+        keep: slice = slice(None),
     ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Host-side half of train_batches: yields numpy (int16 waveforms
         (B, N), label_ids (B,), is_silence (B,)), silence rows zero. Pure
-        numpy and file IO: safe on a background thread."""
+        numpy and file IO: safe on a background thread. ``keep`` selects the
+        rows of the waveforms and labels to load and yield (is_silence stays
+        whole)."""
         n = self.model_settings.desired_samples
         for paths, lbl, sil in self.host_train_paths(
             files, batch_size, num_steps, labels=labels, single_target=single_target
         ):
-            wav = np.zeros((batch_size, n), dtype=np.int16)
+            paths, lbl = paths[keep], lbl[keep]
+            wav = np.zeros((len(paths), n), dtype=np.int16)
             real = [(i, p) for i, p in enumerate(paths) if p is not None]
             if real:
                 loaded = self._load_many([p for _, p in real])

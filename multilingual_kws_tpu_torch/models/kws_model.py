@@ -14,6 +14,13 @@ parameter's name split at "." is its Flax path up to the leaf's own name:
 the fine-tune selects trainable parameters by that path
 (``train/finetune.py``). ``drop_generator`` feeds the trunk's train-mode
 drop-connect (``models/efficientnet.py``).
+
+Compute dtype (the JAX package's mixed precision): the trunk's
+``compute_dtype`` (float32 or bfloat16) also runs ``dense_0``, ``dense_1``
+and ``dense_2``, which take the trunk's output dtype; the 192-d embedding is
+cast to float32 before the selu, and the classifier and the whole transfer
+head compute in float32, so logits, softmax rows and every parameter stay
+float32.
 """
 
 from __future__ import annotations
@@ -28,8 +35,14 @@ from .efficientnet import EfficientNet, EfficientNetB0
 EMBEDDING_DIM = 192
 
 
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` in x's dtype (its float32 parameters cast at the use)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
 class EmbeddingHead(nn.Module):
-    """GAP -> 1024 relu -> 1024 relu -> 192 selu (the embedding, float32)."""
+    """GAP -> 1024 relu -> 1024 relu -> 192 selu (the embedding, float32);
+    the three dense layers compute in the feature map's dtype."""
 
     def __init__(self, in_features: int):
         super().__init__()
@@ -39,9 +52,9 @@ class EmbeddingHead(nn.Module):
 
     def forward(self, feature_map):
         x = feature_map.mean(dim=(-2, -1))  # GlobalAveragePooling2D (NCHW)
-        x = F.relu(self.dense_0(x))
-        x = F.relu(self.dense_1(x))
-        return F.selu(self.dense_2(x).float())
+        x = F.relu(_dense(self.dense_0, x))
+        x = F.relu(_dense(self.dense_1, x))
+        return F.selu(_dense(self.dense_2, x).float())
 
 
 class TransferHead(nn.Module):
@@ -93,9 +106,32 @@ class KWSTransferModel(nn.Module):
 
 def make_transfer_model(num_categories: int = 3, device="cuda", **trunk_kw) -> KWSTransferModel:
     """Full-width EfficientNetB0 transfer model on ``device``, in eval mode,
-    with PyTorch's default initialization (see ``seeded_init_``)."""
+    with PyTorch's default initialization (see ``seeded_init_``);
+    ``trunk_kw`` go to the trunk (e.g. ``compute_dtype="bfloat16"``)."""
     dev = resolve_device(device)
     return KWSTransferModel(EfficientNetB0(**trunk_kw), num_categories).to(dev).eval()
+
+
+def make_embedding_model(num_labels: int, device="cuda", **trunk_kw) -> KWSEmbeddingModel:
+    """Full-width EfficientNetB0 embedding model (``num_labels`` logits) on
+    ``device``, in eval mode, with PyTorch's default initialization
+    (pretraining starts from ``lecun_init_``, Flax's)."""
+    dev = resolve_device(device)
+    return KWSEmbeddingModel(num_labels, EfficientNetB0(**trunk_kw)).to(dev).eval()
+
+
+def transfer_params_from_embedding(embedding_state, transfer_state):
+    """A transfer model's ``state_dict`` with the trunk and embedding head
+    (parameters and BN statistics) of a pretrained embedding model's: the
+    reference's load-and-truncate at "dense_2" (transfer_learning.py:36-43),
+    by key prefix. Returns a new dict; neither input changes."""
+    new = dict(transfer_state)
+    for k, v in embedding_state.items():
+        if k.split(".")[0] in ("trunk", "embedding_head"):
+            if k not in new:
+                raise KeyError(f"{k} of the embedding model is not in the transfer model")
+            new[k] = v
+    return new
 
 
 @torch.no_grad()

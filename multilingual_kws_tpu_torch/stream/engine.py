@@ -26,7 +26,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import exact_float32, resolve_device
 from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
 from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL
 from ..train.checkpoints import load_transfer_model
@@ -131,11 +131,12 @@ def _predict_batches(predict_fn, windows: torch.Tensor, batch_size: int) -> list
 
 
 def model_predict_fn(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
-    """(B, 49, 40, 1) -> (B, 3) softmax through an eval-mode model."""
+    """(B, 49, 40, 1) -> (B, 3) softmax through an eval-mode model (float32
+    computes in float32: ``exact_float32``)."""
     model.eval()
 
     def predict(specs: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with torch.inference_mode(), exact_float32():
             return model(specs)
 
     return predict
@@ -219,6 +220,7 @@ def eval_stream_test(
     predict_fn: Optional[Callable] = None,
     frontend: Optional[MicroFrontendTorch] = None,
     verbose: bool = True,
+    compute_dtype: Optional[str] = None,
     batch_size: int = 8192,
     device="cuda",
 ):
@@ -226,7 +228,10 @@ def eval_stream_test(
     streaming accuracy. ``predict_fn`` is a callable or a port model; without
     it the transfer model saved at ``st.model_path`` is loaded on ``device``
     (``train/checkpoints.load_transfer_model``, the trunk sized from its
-    metadata) and served in eval mode."""
+    metadata) and served in eval mode, its trunk computing in
+    ``compute_dtype`` ("bfloat16": convolutions, BN and the embedding head's
+    dense layers; the float32 tensors load unchanged and the softmax rows
+    stay float32; None or "float32": float32)."""
     if predict_fn is None and st.model_path is None:
         raise ValueError("eval_stream_test needs predict_fn or st.model_path")
     if st.destination_result_pkl is not None and os.path.isfile(st.destination_result_pkl):
@@ -239,7 +244,7 @@ def eval_stream_test(
         print("inferences already present", flush=True)
         loaded_inferences = np.load(st.destination_result_inferences)
     if predict_fn is None and loaded_inferences is None:
-        predict_fn = model_predict_fn(load_transfer_model(st.model_path, device)[0])
+        predict_fn = model_predict_fn(load_transfer_model(st.model_path, device, compute_dtype)[0])
 
     results = {}
     results[st.target_word], inferences = calculate_streaming_accuracy(

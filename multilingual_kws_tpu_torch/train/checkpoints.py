@@ -138,24 +138,26 @@ def load_embedding_params(path, device="cuda") -> Dict[str, torch.Tensor]:
     }
 
 
-def load_transfer_model(path, device="cuda") -> Tuple[KWSTransferModel, Dict]:
+def load_transfer_model(path, device="cuda", compute_dtype=None) -> Tuple[KWSTransferModel, Dict]:
     """A saved transfer model, in eval mode on ``device``, its trunk sized
-    from the metadata's EfficientNet coefficients (absent: B0). The model
-    is built without storage (the meta device) and takes the loaded tensors
-    as its own: no initialization, no second copy."""
+    from the metadata's EfficientNet coefficients (absent: B0) and computing
+    in ``compute_dtype`` (None: float32; the tensors stay float32). The
+    model is built without storage (the meta device) and takes the loaded
+    tensors as its own: no initialization, no second copy."""
     state, meta = load_model(path, device)
     with torch.device("meta"):
-        model = KWSTransferModel(sized_trunk(meta), num_categories=3)
+        model = KWSTransferModel(sized_trunk(meta, compute_dtype), num_categories=3)
     model.load_state_dict(state, strict=True, assign=True)
     return model.eval(), meta
 
 
-def sized_trunk(meta: Mapping) -> EfficientNet:
+def sized_trunk(meta: Mapping, compute_dtype=None) -> EfficientNet:
     """An EfficientNet trunk with a checkpoint's width and depth
-    coefficients (absent: 1.0, B0)."""
+    coefficients (absent: 1.0, B0), computing in ``compute_dtype``."""
     return EfficientNet(
         width_coefficient=float(meta.get("width_coefficient", 1.0)),
         depth_coefficient=float(meta.get("depth_coefficient", 1.0)),
+        compute_dtype=compute_dtype,
     )
 
 

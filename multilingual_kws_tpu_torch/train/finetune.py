@@ -33,9 +33,10 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import exact_float32, resolve_device
 from ..data.dataset import AudioDataset
 from ..models.convert import flax_to_state_dict
+from ..models.efficientnet import as_dtype
 from ..models.kws_model import KWSTransferModel, lecun_init_
 from ..ops.augment import SpecAugParams
 from ..settings import ModelSettings, standard_microspeech_model_settings
@@ -84,7 +85,7 @@ class FinetuneResult:
 
         def predict(specs) -> torch.Tensor:
             x = torch.as_tensor(specs, dtype=torch.float32).to(dev)
-            with torch.inference_mode():
+            with torch.inference_mode(), exact_float32():
                 return model(x)
 
         return predict
@@ -142,14 +143,17 @@ def transfer_learn(
     by default one with the checkpoint's EfficientNet coefficients (B0
     without a checkpoint) and Flax's default initialization
     (``models/kws_model.lecun_init_``) from ``seed``.
-    compute_dtype: float32 only (bf16 is not ported yet)."""
-    if compute_dtype not in (None, "float32"):
-        raise NotImplementedError(f"transfer_learn computes in float32 only, not {compute_dtype}")
+    compute_dtype: "bfloat16" runs the trunk's convolutions, BN and the
+    embedding head's dense layers in bf16 (parameters, BN statistics, the
+    192-d embedding and the transfer head stay float32: the JAX package's
+    mixed-precision contract); None or "float32": float32. It builds the
+    default model; a ``model`` given computes in its own dtype."""
+    trunk_dtype = as_dtype(compute_dtype)
     dev = resolve_device(device)
     model_settings = model_settings or standard_microspeech_model_settings(3)
     if model is None:
         meta = ckpt.load_metadata(base_model_path) if base_model_path is not None else {}
-        model = lecun_init_(KWSTransferModel(ckpt.sized_trunk(meta), num_categories=3), seed or 0)
+        model = lecun_init_(KWSTransferModel(ckpt.sized_trunk(meta, trunk_dtype), num_categories=3), seed or 0)
     model = model.to(dev).eval()
     if base_params is None and base_model_path is not None:
         base_params = ckpt.load_embedding_variables(base_model_path, dev)

@@ -1,12 +1,15 @@
 """Metrics logging: the Keras CSVLogger of the reference
-(transfer_learning.py:81-84).
+(transfer_learning.py:81-84, train_multilingual_embedding.py:117) and the
+history file (train_monolingual_embedding.py:145-149).
 
-The port's own copy of ``CSVLogger`` from ``multilingual_kws_tpu/train/metrics.py``.
+The port's own copies of ``CSVLogger`` and ``save_history`` from
+``multilingual_kws_tpu/train/metrics.py``.
 """
 
 from __future__ import annotations
 
 import csv
+import json
 from pathlib import Path
 from typing import Dict
 
@@ -32,3 +35,11 @@ class CSVLogger:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+def save_history(history: Dict, dest) -> None:
+    """The per-epoch history dict as JSON at ``dest``."""
+    dest = Path(dest)
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    with open(dest, "w") as fh:
+        json.dump(history, fh, indent=1)

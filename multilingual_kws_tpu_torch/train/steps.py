@@ -1,20 +1,28 @@
-"""The few-shot fine-tune step, its optimizer and loss, and BN calibration.
+"""Train steps: the few-shot fine-tune and embedding pretraining, their
+optimizers and losses, and BN calibration.
 
 Counterpart of ``multilingual_kws_tpu/train/steps.py`` (Keras compile/fit of
-the reference, transfer_learning.py:55-93):
+the reference, transfer_learning.py:55-93 and
+train_monolingual_embedding.py:103-137):
 
 - ``adam``: Keras-default Adam (eps 1e-7, not torch's 1e-8) over the
   trainable parameters only. Every other parameter has requires_grad off and
   is not in the optimizer, so it never changes: the JAX package's
   ``multi_transform`` with ``set_to_zero``;
+- ``flat_adam``: the same Adam over every parameter, for pretraining;
 - ``sparse_ce_from_probs``: Keras sparse categorical cross-entropy on
   probabilities, clipped to [1e-7, 1] with ``clamp`` (zero gradient outside,
-  as ``jnp.clip``);
+  as ``jnp.clip``); ``sparse_ce_from_logits`` on logits;
 - ``make_finetune_step``: a step on a model that stays in ``eval()`` mode
   (frozen BN running statistics, no drop-connect), as Keras trains a
   ``trainable=False`` trunk;
+- ``make_pretrain_step``: a train-mode step of the embedding model (BN on
+  batch statistics, updating its running ones; drop-connect), optionally
+  data-parallel over a process group;
 - ``calibrate_batch_stats``: BN running statistics set to the data's
   moments, for a trunk that was never pretrained.
+
+Every step runs under ``exact_float32`` (no TF32 on the card).
 """
 
 from __future__ import annotations
@@ -22,7 +30,13 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
+
+from .. import exact_float32
+from ..parallel import mesh
 
 ParamPath = Tuple[str, ...]
 
@@ -32,11 +46,29 @@ def adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> torch.op
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7)
 
 
+def flat_adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> torch.optim.Adam:
+    """``adam`` over all of a model's parameters, as the multi-tensor
+    (``foreach``) Adam. The JAX package flattens the parameters into one
+    vector (``optax.flatten``) so that the TPU runs a few large vector ops
+    instead of a small loop per leaf; ``foreach`` gets the same from the
+    leaves as they are (each elementwise stage over all of them in a few
+    multi-tensor launches), with the same update rule, so nothing needs
+    flattening."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7, foreach=True)
+
+
 def sparse_ce_from_probs(probs: torch.Tensor, labels: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """Keras SparseCategoricalCrossentropy(from_logits=False) per sample:
     probabilities clipped to [eps, 1], then -log p[label]."""
     p = torch.clamp(probs, eps, 1.0)
     return -torch.log(p).gather(1, labels[:, None].to(torch.int64))[:, 0]
+
+
+def sparse_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample cross-entropy of logits: -log_softmax(logits)[label], in
+    float32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels[:, None].to(torch.int64))[:, 0]
 
 
 def set_trainable(model: nn.Module, trainable: Callable[[ParamPath], bool]) -> List[str]:
@@ -74,23 +106,73 @@ def make_finetune_step(model: nn.Module, learning_rate: float, trainable: Callab
     model.eval()
 
     def step(specs, labels) -> Dict[str, torch.Tensor]:
-        opt.zero_grad(set_to_none=True)
-        probs = model(specs)
-        loss, acc = _metrics(probs, labels)
-        loss.backward()
-        opt.step()
+        with exact_float32():
+            opt.zero_grad(set_to_none=True)
+            probs = model(specs)
+            loss, acc = _metrics(probs, labels)
+            loss.backward()
+            opt.step()
         return {"loss": loss.detach(), "accuracy": acc}
 
     @torch.no_grad()
     def evaluate(specs, labels) -> Dict[str, torch.Tensor]:
-        loss, acc = _metrics(model(specs), labels)
+        with exact_float32():
+            loss, acc = _metrics(model(specs), labels)
         return {"loss": loss, "accuracy": acc}
 
     @torch.inference_mode()
     def predict(specs) -> torch.Tensor:
-        return model(specs)
+        with exact_float32():
+            return model(specs)
 
     return step, evaluate, predict
+
+
+def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=None):
+    """Embedding-pretraining step (the JAX package's ``make_pretrain_step``):
+    the model in train mode (BN on batch statistics, updating its running
+    ones; drop-connect), logits, cross-entropy and accuracy. Returns (step,
+    evaluate):
+
+    - ``step(specs, labels, drop_generator)`` updates the model in place and
+      returns {"loss", "accuracy"} as device scalars (no host sync);
+    - ``evaluate(specs, labels)`` returns the same metrics in eval mode,
+      without a gradient.
+
+    ``group``: a process group (the default one, ``mesh.default_group()``)
+    to run data-parallel over: each rank passes its rows of the global batch
+    (``mesh.local_rows``); ``DistributedDataParallel`` averages the
+    gradients, BN normalizes over the global batch, and the loss and
+    accuracy returned are averaged over the ranks, so every rank sees the
+    metrics of the global batch."""
+    net = DistributedDataParallel(model, process_group=group, broadcast_buffers=False) if group is not None else model
+
+    def metrics(logits, labels):
+        loss = sparse_ce_from_logits(logits, labels).mean()
+        acc = (torch.argmax(logits, -1) == labels).to(torch.float32).mean()
+        return loss, acc
+
+    def step(specs, labels, drop_generator=None) -> Dict[str, torch.Tensor]:
+        model.train()
+        with exact_float32():
+            optimizer.zero_grad(set_to_none=True)
+            loss, acc = metrics(net(specs, drop_generator=drop_generator), labels)
+            loss.backward()
+            optimizer.step()
+        out = torch.stack([loss.detach(), acc])
+        if group is not None:
+            dist.all_reduce(out, group=group)
+            out /= dist.get_world_size(group)
+        return {"loss": out[0], "accuracy": out[1]}
+
+    @torch.no_grad()
+    def evaluate(specs, labels) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with exact_float32():
+            loss, acc = metrics(model(specs), labels)
+        return {"loss": loss, "accuracy": acc}
+
+    return step, evaluate
 
 
 @torch.no_grad()
@@ -104,27 +186,38 @@ def calibrate_batch_stats(model: nn.Module, specs_batches, drop_generator=None) 
     biased variance over (N, H, W) (Flax's batch moments) by forward hooks;
     the running statistics become their mean over the batches. In train
     mode no layer's output depends on the running statistics, so this is
-    the fixed point the JAX package iterates towards. The model is left in
-    eval mode."""
+    the fixed point the JAX package iterates towards. Under a process group
+    of more than one rank each rank passes its rows of the global batches,
+    and the moments are those of the global batches (the BN inputs' means
+    are all-reduced, then their squared deviations), as the JAX package
+    computes them over its batch-sharded mesh. The model is left in eval
+    mode."""
     batches = list(specs_batches)
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     if not batches or not bns:
         return model
     sums = {bn: [0.0, 0.0] for bn in bns}
+    world = mesh.world_size()
+
+    def global_mean(local):
+        if world > 1:
+            dist.all_reduce(local)
+            local /= world
+        return local
 
     def record(bn, inputs, _output):
-        x = inputs[0]
-        mean = x.mean(dim=(0, 2, 3))
-        var = (x - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
+        x = inputs[0].float()
+        mean = global_mean(x.mean(dim=(0, 2, 3)))
+        var = global_mean((x - mean[None, :, None, None]).square().mean(dim=(0, 2, 3)))
         sums[bn][0] = sums[bn][0] + mean
         sums[bn][1] = sums[bn][1] + var
 
     handles = [bn.register_forward_hook(record) for bn in bns]
-    tracked = {bn: bn.num_batches_tracked.clone() for bn in bns}
     try:
         model.train()
-        for specs in batches:
-            model(specs, drop_generator=drop_generator)
+        with exact_float32():
+            for specs in batches:
+                model(specs, drop_generator=drop_generator)
     finally:
         for h in handles:
             h.remove()
@@ -132,5 +225,4 @@ def calibrate_batch_stats(model: nn.Module, specs_batches, drop_generator=None) 
     for bn in bns:
         bn.running_mean.copy_(sums[bn][0] / len(batches))
         bn.running_var.copy_(sums[bn][1] / len(batches))
-        bn.num_batches_tracked.copy_(tracked[bn])
     return model

@@ -9,7 +9,10 @@ package's, from a narrow embedding converted from a JAX checkpoint
   weights as the JAX CLI's: the same detections.json, keywords and times
   equal and confidences within 1e-5 (the softmax tolerance of
   tests/test_torch_stream.py; a confidence is a mean of softmax scores);
-- the visualizer's files are byte for byte the JAX package's.
+- the visualizer's files are byte for byte the JAX package's;
+- ``pretrain`` from manifests on a tiny corpus at width and depth 0.25
+  (float32 and bfloat16) writes an embedding checkpoint that ``train
+  --embedding`` fine-tunes from.
 """
 
 import json
@@ -31,6 +34,17 @@ from multilingual_kws_tpu_torch.train import checkpoints as ck
 from test_torch_checkpoints import DEPTH, WIDTH, build_checkpoints
 
 THRESHOLD = "0.3"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -127,9 +141,53 @@ def test_visualizer_files_match_jax(ws):
 
 
 def test_bfloat16_is_refused(ws):
+    """``--compute-dtype bfloat16`` was refused until the port computed in
+    bf16; now ``train`` and ``inference`` run at it: the transfer checkpoint
+    holds float32 tensors, its trunk and embedding head the embedding's, and
+    detections.json is written. Compute dtypes the port has not got are
+    still refused by the parser."""
     root, paths, _ = ws
-    with pytest.raises(SystemExit, match="not ported yet"):
-        port_cli.main(_train_args(paths, root / "bf16") + ["--device", "cpu", "--compute-dtype", "bfloat16"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        port_cli.main(["inference", "--keywords", "alpha", "--modelpaths", paths["transfer"], "--wav", paths["wav"],
-                       "--device", "cpu", "--compute-dtype", "bfloat16"])
+    port_cli.main(_train_args(paths, root / "bf16") + ["--device", "cpu", "--compute-dtype", "bfloat16"])
+    state, _ = ck.load_model(root / "bf16", device="cpu")
+    base, _ = ck.load_model(paths["embedding"], device="cpu")
+    assert all(t.dtype in (torch.float32, torch.int64) for t in state.values())
+    assert all(torch.equal(state[k], base[k]) for k in state if k.split(".")[0] in ("trunk", "embedding_head"))
+    det = _inference(port_cli.main, str(root / "bf16"), paths["wav"], root / "bf16.json",
+                     extra=("--device", "cpu", "--compute-dtype", "bfloat16"))
+    assert det["keywords"] == ["alpha"] and det["min_threshold"] == float(THRESHOLD)
+    with pytest.raises(SystemExit):
+        port_cli.main(_train_args(paths, root / "f16") + ["--device", "cpu", "--compute-dtype", "float16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pretrain_then_train(ws, dtype):
+    root, paths, _ = ws
+    corpus = paths["corpus"]
+    work = root / f"pretrain_{dtype}"
+    work.mkdir()
+    words = ["bravo", "charlie"]
+    (work / "commands.txt").write_text("\n".join(words) + "\n")
+    (work / "train_files.txt").write_text("\n".join(f for w in words for f in corpus[w][:6]) + "\n")
+    (work / "val_files.txt").write_text("\n".join(f for w in words for f in corpus[w][6:]) + "\n")
+    port_cli.main([
+        "pretrain", "--commands", str(work / "commands.txt"), "--train-files", str(work / "train_files.txt"),
+        "--val-files", str(work / "val_files.txt"), "--background-noise", corpus["bg_dir"],
+        "--output", str(work / "emb"), "--num-epochs", "2", "--steps-per-epoch", "2", "--batch-size", "8",
+        "--silence-percentage", "10", "--csvlog", str(work / "log.csv"), "--history", str(work / "history.json"),
+        "--width-coefficient", "0.25", "--depth-coefficient", "0.25", "--compute-dtype", dtype,
+        "--device", "cpu",
+    ])
+    meta = ck.load_metadata(work / "emb")
+    assert meta["kind"] == "embedding" and meta["commands"] == ["_silence_", "bravo", "charlie"]
+    assert (meta["width_coefficient"], meta["depth_coefficient"]) == (0.25, 0.25) and meta["num_labels"] == 3
+    history = json.loads((work / "history.json").read_text())
+    assert len(history["loss"]) == 2 and np.isfinite(history["loss"]).all()
+    emb, _ = ck.load_model(work / "emb", device="cpu")
+    assert all(t.dtype in (torch.float32, torch.int64) for t in emb.values())
+    port_cli.main(["train", "--keyword", "alpha", "--samples-dir", paths["samples"], "--embedding", str(work / "emb"),
+                   "--unknown-words", corpus["unknown_dir"], "--background-noise", corpus["bg_dir"],
+                   "--output", str(work / "alpha"), "--num-epochs", "1", "--num-batches", "1", "--batch-size", "8",
+                   "--compute-dtype", dtype, "--device", "cpu"])
+    state, tmeta = ck.load_model(work / "alpha", device="cpu")
+    assert (tmeta["width_coefficient"], tmeta["depth_coefficient"]) == (0.25, 0.25)
+    assert all(torch.equal(state[k], t) for k, t in emb.items() if k.split(".")[0] in ("trunk", "embedding_head"))

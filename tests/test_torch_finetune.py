@@ -322,7 +322,9 @@ def test_phase_two_from_flax_base_weights(flax_pair, corpus):
     assert not torch.equal(sd["embedding_head.dense_0.weight"], base["embedding_head.dense_0.weight"])
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16")])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="float16")])
 def test_transfer_learn_refuses_what_is_not_ported(kw):
+    """The port computes in float32 or bfloat16 (tests/test_torch_bf16.py);
+    other compute dtypes are refused before any work."""
     with pytest.raises(NotImplementedError):
         transfer_learn("alpha", [], [], [], device="cpu", **kw)

@@ -23,7 +23,7 @@ from multilingual_kws_tpu_torch.ops import micro_torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 from multilingual_kws_tpu_torch.stream import engine
-from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune
+from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune, pretrain
 from multilingual_kws_tpu_torch.utils.wav import write_wav
 
 REPO = Path(__file__).resolve().parents[1]
@@ -81,6 +81,10 @@ ENTRY_POINTS = {
     "MicroFrontendTorch": lambda: micro_torch.MicroFrontendTorch(),
     "MicroFrontendTorch_fast": lambda: micro_torch.MicroFrontendTorch(mode="fast"),
     "make_transfer_model": lambda: kws_model.make_transfer_model(),
+    "make_embedding_model": lambda: kws_model.make_embedding_model(761),
+    "pretrain": lambda: pretrain.pretrain(["x/a.wav"], [], ["x"], "no_such_dir"),
+    "cli_pretrain": lambda: cli.main(["pretrain", "--commands", "c", "--train-files", "t", "--val-files", "v",
+                                      "--background-noise", "b", "--output", "o"]),
     "stream_feature_chunks": lambda: next(engine.stream_feature_chunks(_AUDIO, 16000, _FLAGS)),
     "featurize_stream": lambda: engine.featurize_stream(_AUDIO, 16000, _FLAGS),
     "AudioDataset": lambda: dataset.AudioDataset(_SETTINGS, ["x"], "no_such_dir", []),
