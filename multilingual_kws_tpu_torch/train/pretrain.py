@@ -80,15 +80,20 @@ class PretrainConfig:
     # (None: on when the bank fits resident_max_bytes)
     resident_data: Optional[bool] = None
     resident_max_bytes: int = AudioDataset.RESIDENT_MAX_BYTES
-    # the JAX package runs a resident epoch as one scanned device program;
-    # PyTorch runs eagerly, so this is ignored and every epoch runs step by
-    # step (the same draws)
-    scan_epoch: bool = True
+    # the JAX package's choice between a resident epoch as one scanned device
+    # program (True) and a step at a time (False, the same draws); the port
+    # runs eagerly and has only the latter, so True is refused
+    scan_epoch: bool = False
     # "bfloat16": convolutions, BN and the embedding head's dense layers in
     # bf16; parameters, BN statistics, the 192-d embedding, logits and the
     # optimizer stay float32. "float32": float32 throughout (no TF32)
     compute_dtype: str = "float32"
     device: str = "cuda"
+
+    def __post_init__(self):
+        if self.scan_epoch:
+            raise ValueError("scan_epoch=True: the port has no scanned epoch; it runs a step at a time "
+                             "(scan_epoch=False), with the same draws")
 
 
 def _validate(model, dataset: AudioDataset, val_files, val_labels, batch_size: int, group):
@@ -127,16 +132,16 @@ def pretrain(
     background_data_dir,
     unknown_files: Sequence[str] = (),
     config: PretrainConfig = PretrainConfig(),
-    group=None,
     model_settings: Optional[ModelSettings] = None,
     resume_params: Optional[Mapping[str, torch.Tensor]] = None,
     verbose: int = 1,
     model: Optional[KWSEmbeddingModel] = None,
     checkpoint_meta: Optional[Dict] = None,
 ):
-    """Pretraining loop; the JAX package's signature, with ``group`` (a
-    process group, default: ``mesh.default_group()``, the one
-    ``mesh.initialize_distributed`` joined, or none) in place of ``mesh``.
+    """Pretraining loop; the JAX package's signature without ``mesh``: it
+    runs data-parallel over the default process group (the one
+    ``mesh.initialize_distributed`` joined), or in one process without one.
+    BN and drop-connect span that group too, so no other is taken.
     Labels come from the parent directories' names (init_from_parent_dir
     semantics, input_data.py:473-508).
 
@@ -152,7 +157,7 @@ def pretrain(
     Returns (model, history, dataset): the model in eval mode, and per epoch
     "loss", "accuracy" (the train steps' means), "val_loss" and
     "val_accuracy"."""
-    group = group if group is not None else mesh.default_group()
+    group = mesh.default_group()
     world = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
     dev = resolve_device(config.device)

@@ -139,12 +139,19 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
     - ``evaluate(specs, labels)`` returns the same metrics in eval mode,
       without a gradient.
 
-    ``group``: a process group (the default one, ``mesh.default_group()``)
-    to run data-parallel over: each rank passes its rows of the global batch
+    ``group``: the default process group (``mesh.default_group()``) to run
+    data-parallel over: each rank passes its rows of the global batch
     (``mesh.local_rows``); ``DistributedDataParallel`` averages the
     gradients, BN normalizes over the global batch, and the loss and
     accuracy returned are averaged over the ranks, so every rank sees the
-    metrics of the global batch."""
+    metrics of the global batch. BN and drop-connect span the default group
+    (``models/efficientnet.py``), so another group is refused, and so is
+    none while the default group has more than one rank."""
+    if group is not None and group != mesh.default_group():
+        raise ValueError("make_pretrain_step runs over the default process group only: BN and drop-connect span it")
+    if group is None and mesh.world_size() > 1:
+        raise ValueError("make_pretrain_step: pass the default process group of "
+                         f"{mesh.world_size()} ranks, over which BN and drop-connect run")
     net = DistributedDataParallel(model, process_group=group, broadcast_buffers=False) if group is not None else model
 
     def metrics(logits, labels):

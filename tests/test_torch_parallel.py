@@ -85,6 +85,15 @@ def _worker(rank: int, world: int, store: str, out: str) -> None:
         specs, labels = _batch()
         rows = mesh.local_rows(GLOBAL_BATCH)
         metrics = _train_step(model, specs[rows], labels[rows], mesh.default_group())
+        # BN and drop-connect span the default group: a step over another
+        # group, or over none, would mix two groups and is refused
+        other = dist.new_group([0, 1])
+        refused = []
+        for group in (other, None):
+            try:
+                make_pretrain_step(model, torch.optim.SGD(model.parameters(), lr=0.1), group)
+            except ValueError:
+                refused.append(group is None)
         model.eval()
         rng = np.random.default_rng(1)
         predict = mesh.make_sharded_predict(lambda x: model(x))
@@ -93,7 +102,8 @@ def _worker(rank: int, world: int, store: str, out: str) -> None:
             sharded = {n: predict(x) for n, x in inputs.items()}
             plain = {n: model(x) for n, x in inputs.items()}
         torch.save({"metrics": {k: float(v) for k, v in metrics.items()}, "state": model.state_dict(),
-                    "sharded": sharded, "plain": plain, "world": mesh.world_size(), "rank": mesh.rank()},
+                    "sharded": sharded, "plain": plain, "world": mesh.world_size(), "rank": mesh.rank(),
+                    "refused": refused},
                    os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -141,6 +151,13 @@ def test_two_processes_match_one(two_ranks):
         getattr(no_drop.trunk, name).drop_rate = 0.0
     loss_no_drop = float(_train_step(no_drop, specs, labels, None)["loss"])
     assert abs(loss_no_drop - float(want["loss"])) > 1e-4
+
+
+def test_pretrain_step_runs_over_the_default_group_only(two_ranks):
+    assert [r["refused"] for r in two_ranks] == [[False, True]] * 2
+    model = _model()
+    with pytest.raises(ValueError):  # a group where none is up
+        make_pretrain_step(model, torch.optim.SGD(model.parameters(), lr=0.1), object())
 
 
 def test_sharded_predict_matches_plain(two_ranks):

@@ -245,6 +245,15 @@ def test_pretrain_on_cpu(pretrained, corpus):
     assert all(torch.equal(sd[k], v) for k, v in emb.items())
 
 
+def test_pretrain_config_refuses_a_scanned_epoch():
+    """The JAX package's ``scan_epoch`` picks one scanned device program
+    per resident epoch; the port has only the per-step loop, so asking
+    for the scan is an error rather than a silent no-op."""
+    assert PretrainConfig().scan_epoch is False
+    with pytest.raises(ValueError, match="scan_epoch"):
+        PretrainConfig(scan_epoch=True)
+
+
 def test_resume_continues_from_checkpoint(pretrained, corpus):
     """``resume_params`` (a port state_dict) restores parameters and BN
     statistics, and training continues from them (JAX
