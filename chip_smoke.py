@@ -120,6 +120,24 @@ nvcc, then:
       the target probability's delta percentiles and the detections); and
       a bf16 ``transfer_learn`` at the JAX defaults with its step beside
       (e)'s.
+  (j) the realtime detector, the TF-free weight mapping and the analysis
+      modules, on phase e's fine-tuned model and corpus, phase h's embedding
+      checkpoint and the first J_SECONDS of (c)'s stream: ``RealtimeDetector``
+      (default frontend: the port's on the card) fed in 100 ms, then 1 s
+      chunks, its detections equal across the two and equal to the offline
+      engine's (``featurize_stream``, the same predict,
+      ``detect_all_thresholds``), its softmax rows within J_CONF_TOL of the
+      offline rows; it prints the per-feed wall (p50, p99), the real-time
+      factor, the B1 launches (one a feed that completes windows), B1's
+      device time at a feed's batch of 5 and a feed's device busy time. The
+      model through the Keras weight map (``models/export_tf.keras_weight_map``,
+      ``models/import_tf.import_weight_map``) into a new model: every tensor
+      and the softmax rows on 256 windows ==. Then ``cluster_and_sort`` (the
+      card's k-means within J_KMEANS_TOL of the CPU's from the same seeded
+      centers), ``run_sweep_point`` (1 epoch x 8 steps; resumes),
+      ``run_job`` (its pickled detections == a direct ``eval_stream_test``
+      of its saved model; a second call skips), ``streaming_roc`` on that
+      pickle and ``analyze_model``, each with its wall and launches.
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
@@ -143,6 +161,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1890,6 +1909,251 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
     return runs["float32"]["epoch"]
 
 
+J_SECONDS = 60  # phase j: the realtime and analysis paths run on the first 60 s of phase c's stream
+J_CHUNKS_MS = (100, 1000)  # realtime feeds
+J_THRESHOLD = 0.6  # phase e's model scores 0.17-0.77 (PERF.md PR 7)
+J_CONF_TOL = 1e-4  # realtime rows come from other batch sizes (cuDNN algorithms) than the offline engine's
+J_KMEANS_TOL = 1e-4  # of the largest center value: card against CPU Lloyd updates
+
+
+def analysis_phase(torch, fe, ft_model, corpus, wave, labels, work: Path):
+    """Phase j: the realtime detector, the TF-free weight mapping and the
+    analysis modules on the card, with phase e's fine-tuned model and corpus,
+    phase h's embedding checkpoint and the first J_SECONDS of phase c's
+    stream (see the module docstring)."""
+    from multilingual_kws_tpu_torch.analysis import batch_jobs, distance_filtering, model_analysis, sweeps
+    from multilingual_kws_tpu_torch.analysis.streaming_roc import operating_point, streaming_roc
+    from multilingual_kws_tpu_torch.models.export_tf import keras_weight_map
+    from multilingual_kws_tpu_torch.models.import_tf import import_weight_map, model_from_import
+    from multilingual_kws_tpu_torch.ops import cuda_augment, cuda_clip, cuda_fft, cuda_frontend
+    from multilingual_kws_tpu_torch.stream.detector import DetectorParams, detect_all_thresholds
+    from multilingual_kws_tpu_torch.stream.engine import (
+        StreamFlags,
+        StreamTarget,
+        eval_stream_test,
+        featurize_stream,
+        model_predict_fn,
+    )
+    from multilingual_kws_tpu_torch.stream.realtime import RealtimeDetector
+    from multilingual_kws_tpu_torch.train.evaluate import featurize_files
+    from multilingual_kws_tpu_torch.utils.wav import write_wav
+
+    dev = fe.device
+    sync = torch.cuda.synchronize
+    ft_model.eval()
+    counters = {"clip_features": cuda_clip.clip_features, "augment_quantize": cuda_augment.augment_quantize,
+                "stream_prefix": cuda_fft.stream_prefix, "stream_suffix": cuda_frontend.stream_suffix}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    audio = wave[: J_SECONDS * SR]
+    gt = [(lab, ms) for lab, ms in labels if ms < J_SECONDS * 1000]
+    check(gt, f"no keyword in the stream's first {J_SECONDS} s")
+
+    # 1. realtime: the audio fed in 100 ms, then 1 s chunks, after one
+    # untimed pass (cuDNN set-up for each batch size)
+    predict = model_predict_fn(ft_model)
+    rows = []
+
+    def recording(specs):
+        out = predict(specs)
+        rows.append(out.float().cpu().numpy())
+        return out
+
+    def run(chunk_ms, predict_fn, walls=None):
+        det = RealtimeDetector("alpha", predict_fn, detection_threshold=J_THRESHOLD, device=dev)
+        step = chunk_ms * SR // 1000
+        out = []
+        for i in range(0, len(audio), step):
+            before = det._next_window_start
+            t0 = time.perf_counter()
+            got = det.feed(audio[i : i + step])
+            sync()
+            if walls is not None and det._next_window_start > before:  # a feed that completed windows
+                walls.append(time.perf_counter() - t0)
+            out.extend((d.time_ms, d.confidence) for d in got)
+        return out, det
+
+    run(J_CHUNKS_MS[0], predict)
+    walls = []
+    reset()
+    t0 = time.perf_counter()
+    dets = {J_CHUNKS_MS[0]: run(J_CHUNKS_MS[0], predict, walls)[0]}
+    rt_wall = time.perf_counter() - t0
+    rt_launches = launches()
+    dets[J_CHUNKS_MS[1]], det = run(J_CHUNKS_MS[1], recording)
+    a, b = dets[J_CHUNKS_MS[0]], dets[J_CHUNKS_MS[1]]
+    check([t for t, _ in a] == [t for t, _ in b], f"realtime detections differ by chunk size: {a} != {b}")
+    conf_chunks = max((abs(x[1] - y[1]) for x, y in zip(a, b)), default=0.0)
+    check(conf_chunks <= J_CONF_TOL, f"realtime confidences differ by chunk size by {conf_chunks}")
+    check(a, f"no realtime detection at {J_THRESHOLD} in {J_SECONDS} s")
+    n_rt = det._next_window_start // det.stride_samples
+    check(rt_launches == {"clip_features": len(walls)},
+          f"realtime launches {rt_launches}, expected one clip_features a feed that completes windows ({len(walls)})")
+    # the offline engine: featurize_stream, the same predict, detect_all_thresholds
+    flags = StreamFlags(wav="", ground_truth="", target_keyword="alpha", detection_thresholds=[J_THRESHOLD])
+    windows = torch.from_numpy(featurize_stream(audio, SR, flags, device=dev)).to(dev)
+    offline_rows = torch.cat([predict(windows[i : i + BATCH, ..., None]) for i in range(0, len(windows), BATCH)])
+    offline_rows = offline_rows.float().cpu().numpy()
+    times = np.arange(len(windows)) * 20
+    offline, _ = detect_all_thresholds(offline_rows, times, [J_THRESHOLD], DetectorParams(),
+                                       target_name="alpha")[J_THRESHOLD]
+    online = [(t, c) for t, c in a if t <= times[-1]]  # the realtime detector also scores the stream's last window
+    check([t for t, _ in online] == [t for _, t in offline],
+          f"realtime detections != the offline engine's: {online} against {offline}")
+    rt_rows = np.concatenate(rows)
+    check(rt_rows.shape[0] == n_rt and n_rt >= len(windows), f"realtime scored {rt_rows.shape[0]} windows")
+    row_err = float(np.abs(rt_rows[: len(windows)] - offline_rows).max())
+    check(row_err <= J_CONF_TOL, f"realtime softmax rows differ from the offline engine's by {row_err}")
+    feeds = np.array(walls)
+    n_feeds = -(-len(audio) // (J_CHUNKS_MS[0] * SR // 1000))
+    x5 = torch.from_numpy(np.clip(np.trunc(audio[: SR + 4 * 320] * 32768.0), -32768, 32767).astype(np.int16)).to(dev)
+    x5 = x5.unfold(0, SR, 320).contiguous()  # the five windows a 100 ms feed completes
+    k_b1, grid_b1, _ = kernel_ms(torch, lambda: cuda_clip.clip_features(x5, fe), "clip_features_kernel")
+    spec5 = cuda_clip.clip_features(x5, fe)[..., None]
+    model5 = cuda_ms(torch, lambda: predict(spec5), 20)
+    # one 100 ms feed's device busy time, over 20 feeds of a session that has its first second
+    det = RealtimeDetector("alpha", predict, detection_threshold=J_THRESHOLD, device=dev)
+    det.feed(audio[:SR])
+    chunks = iter(range(SR, len(audio), 1600))
+    events, traced = device_trace(torch, lambda: det.feed(audio[next(chunks):][:1600]), iters=20,
+                                  expect=("clip_features_kernel", 10))
+    feed_busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3 / 20
+    print(f"phase j: realtime on {J_SECONDS} s of phase c's stream with phase e's model at {J_THRESHOLD}: "
+          f"{n_feeds} feeds of {J_CHUNKS_MS[0]} ms in {rt_wall:.4f} s, real-time factor (wall / audio) "
+          f"{rt_wall / J_SECONDS:.5f}; per-feed wall (host clock to a synchronize) of the {len(feeds)} feeds that "
+          f"complete windows p50 {np.percentile(feeds, 50) * 1e3:.3f} ms, p99 {np.percentile(feeds, 99) * 1e3:.3f} "
+          f"ms, max {feeds.max() * 1e3:.3f} ms; {n_rt} windows; launches {rt_launches}; a 100 ms feed's device "
+          f"busy {feed_busy_ms:.4f} ms (profiler, mean of 20; {traced / 20 * 1e3:.3f} ms wall each under the "
+          f"profiler); clip_features at the feed's batch of 5: {k_b1:.5f} ms (profiler, grid {grid_b1}); "
+          f"predict at batch 5: {model5:.3f} ms (CUDA events); detections {len(a)} == at {J_CHUNKS_MS[1]} ms "
+          f"chunks (max |conf delta| {conf_chunks:.2e}) == the offline engine's ({len(offline)}); max |softmax "
+          f"row - offline| {row_err:.2e} over {len(windows)} windows")
+
+    # 2. the TF-free weight mapping: model -> Keras layer map -> a fresh port model
+    t0 = time.perf_counter()
+    sd = ft_model.state_dict()
+    m = keras_weight_map(sd)
+    rebuilt = model_from_import(import_weight_map(m["by_name"], m["dense_order"]), dev)
+    sync()
+    t_map = time.perf_counter() - t0
+    got = rebuilt.state_dict()
+    check(set(got) == set(sd) and all(torch.equal(got[k], sd[k]) for k in sd),
+          "a tensor differs after the Keras weight mapping's round trip")
+    with torch.inference_mode():
+        w256 = windows[:256, ..., None]
+        check(torch.equal(predict(w256), model_predict_fn(rebuilt)(w256)),
+              "softmax rows of the model rebuilt from the Keras weight map != the model's")
+    print(f"phase j: TF-free weight mapping ({m['kind']}, {len(m['by_name'])} Keras layers): model -> Keras map -> "
+          f"a new model on the card in {t_map:.3f} s; all {len(sd)} tensors ==, softmax rows on 256 windows ==")
+    del rebuilt
+
+    # 3. analysis: cluster_and_sort, a sweep point, a batch job, streaming ROC, analyze_model
+    root = Path(corpus["bg_dir"]).parent
+    alpha = corpus["train"] + corpus["val"]
+    emb_fn = distance_filtering.make_embedding_fn(ft_model)
+    reset()
+    t0 = time.perf_counter()
+    res = distance_filtering.cluster_and_sort(alpha, emb_fn, seed=3, n_train=15, n_clusters=3, device=dev)
+    t_cluster = time.perf_counter() - t0
+    l_cluster = launches()
+    check(l_cluster.get("clip_features", 0) > 0, f"cluster_and_sort launched {l_cluster}")
+    points = torch.from_numpy(emb_fn(featurize_files(list(res["train_clips"]), device=dev)[..., None])).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    seeded = distance_filtering.kmeans_seed(points, 3, gen)
+    card = distance_filtering.kmeans_lloyd(points, seeded)
+    cpu = distance_filtering.kmeans_lloyd(points.cpu(), seeded.cpu())
+    km_err = float((card.cpu() - cpu).abs().max())
+    km_scale = float(cpu.abs().max())
+    check(km_err <= J_KMEANS_TOL * km_scale, f"card k-means != CPU k-means: {km_err} of {km_scale}")
+    check(len(res["sorted_clips"]) == len(alpha) - 15 and np.all(np.diff(res["distances"]) >= 0),
+          "cluster_and_sort's order")
+    print(f"phase j: cluster_and_sort on {len(alpha)} 'alpha' clips (15 to train, 3 clusters) {t_cluster:.3f} s, "
+          f"launches {l_cluster}; card k-means from the seeded centers vs CPU: max |delta| {km_err:.2e} of "
+          f"{km_scale:.3f}; vs cluster_and_sort's centers {float(np.abs(card.cpu().numpy() - res['cluster_centers']).max()):.2e}")
+
+    emb_ckpt = work / "embedding"
+    sp = sweeps.SweepPoint(ix=0, trial=0, target="alpha", train_files=corpus["train"], val_files=corpus["val"],
+                           unknown_files=corpus["unknown"], unknown_sample=["unknown"], num_epochs=1,
+                           num_batches=1, batch_size=8)
+    reset()
+    t0 = time.perf_counter()
+    out = sweeps.run_sweep_point(sp, work / "sweep", root, base_model_path=emb_ckpt, bg_datadir=corpus["bg_dir"],
+                                 n_target_eval=25, n_unknown_eval=40, device=dev)
+    t_sweep = time.perf_counter() - t0
+    l_sweep = launches()
+    check(all(l_sweep.get(k, 0) > 0 for k in ("clip_features", "augment_quantize")),
+          f"run_sweep_point launched {l_sweep}")
+    check(out is not None and sweeps.run_sweep_point(sp, work / "sweep", root, device=dev) is None,
+          "sweep point resume")
+    loaded = sweeps.load_sweep_results(work / "sweep")
+    check(len(loaded) == 1 and len(loaded[0]["tprs"]) == 101, "load_sweep_results")
+    n_eval = len(out["target_results"]["correct"]) + len(out["target_results"]["incorrect"])
+    print(f"phase j: run_sweep_point (1 epoch x 8 steps at batch 8, from phase h's embedding, 25 target and 40 "
+          f"unknown clips evaluated) {t_sweep:.3f} s, launches {l_sweep}; val accuracy "
+          f"{out['details']['val_accuracy']:.3f}; {n_eval} target clips scored; a second call resumes (None)")
+
+    wav, gt_file = work / "stream60.wav", work / "labels60.txt"
+    write_wav(wav, audio, SR)
+    gt_file.write_text("".join(f"{lab}, {ms}\n" for lab, ms in gt))
+    jflags = StreamFlags(wav=str(wav), ground_truth=str(gt_file), target_keyword="alpha",
+                         detection_thresholds=[0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9])
+    st = StreamTarget("x", "alpha", None, [jflags], destination_result_pkl=str(work / "job/result.pkl"),
+                      destination_result_inferences=str(work / "job/inferences.npy"))
+    job = batch_jobs.TLData(train_files=corpus["train"], val_files=corpus["val"], n_batches=1, n_epochs=1,
+                            model_dest_dir=str(work / "job_models"), primary_lr=1e-3, backprop_into_embedding=False,
+                            embedding_lr=0.0, target="alpha", stream_targets=[st], batch_size=8)
+    reset()
+    t0 = time.perf_counter()
+    name = batch_jobs.run_job(job, corpus["unknown"], emb_ckpt, corpus["bg_dir"], device=dev)
+    t_job = time.perf_counter() - t0
+    l_job = launches()
+    check(all(l_job.get(k, 0) > 0 for k in counters), f"run_job launched {l_job}")
+    with open(st.destination_result_pkl, "rb") as fh:
+        job_results = pickle.load(fh)
+    direct_inf = work / "job/direct_inferences.npy"
+    direct = eval_stream_test(StreamTarget("x", "alpha", str(work / "job_models" / name), [jflags],
+                                           destination_result_inferences=str(direct_inf)), verbose=False,
+                              device=dev)
+    check(job_results["alpha"][0][1] == direct["alpha"][0][1],
+          "the batch job's pickled detections != a direct eval_stream_test of its saved model")
+    inf_err = float(np.abs(np.load(st.destination_result_inferences) - np.load(direct_inf)).max())
+    check(batch_jobs.run_job(job, corpus["unknown"], emb_ckpt, corpus["bg_dir"], device=dev) == "skipped",
+          "run_job resume")
+    found = {th: len(r[0]) for th, r in job_results["alpha"][0][1].items()}
+    t0 = time.perf_counter()
+    roc = streaming_roc(job_results, "alpha", [ms for _, ms in gt], float(J_SECONDS), min_threshold=0.0)
+    t_roc = time.perf_counter() - t0
+    print(f"phase j: run_job (1 epoch x 8 steps at batch 8 from phase h's embedding, then eval_stream_test on "
+          f"{J_SECONDS} s) {t_job:.3f} s, launches {l_job}; detections per threshold {found} == a direct "
+          f"eval_stream_test of the saved model (max |softmax delta| {inf_err:.2e}); a second call skips; "
+          f"streaming_roc {t_roc * 1e3:.2f} ms: tprs {[round(t, 3) for t in roc['tprs']]}, FA/h "
+          f"{[round(f, 1) for f in roc['fa_per_hour']]}, operating point {operating_point(roc)}")
+
+    reset()
+    t0 = time.perf_counter()
+    analysis = model_analysis.analyze_model(predict, ["alpha"], 0.0, str(root), ["unknown"], ["unknown"], ["unknown"],
+                                            num_samples_command=25, n_examples_oov_unknown=40, seed=0, device=dev)
+    t_analysis = time.perf_counter() - t0
+    l_analysis = launches()
+    check(l_analysis.get("clip_features", 0) > 0, f"analyze_model launched {l_analysis}")
+    sizes = {k: len(analysis[k]["correct"]) + len(analysis[k]["incorrect"])
+             for k in ("target_keywords", "oov", "unknown_training", "original_embedding")}
+    check(sizes == {"target_keywords": 25, "oov": 40, "unknown_training": 40, "original_embedding": 40},
+          f"analyze_model's clip counts {sizes}")
+    tprs, fprs = model_analysis.calc_roc(analysis)
+    print(f"phase j: analyze_model on phase e's clips {t_analysis:.3f} s, launches {l_analysis}; clips {sizes}; "
+          f"AUC {model_analysis.auc(tprs, fprs):.4f}")
+    return {"realtime": rt_launches, "cluster_and_sort": l_cluster, "sweep_point": l_sweep, "run_job": l_job,
+            "analyze_model": l_analysis}
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2416,8 @@ def main() -> int:
     cli_paths = cli_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
     # (i) pretraining, and bf16 on the stream, the CLI and the fine-tune
     pretrain_epoch = pretrain_phase(torch, model, ft_model, corpus, finetune_epoch, cli_paths, Path(work.name))
+    # (j) the realtime detector, the TF-free weight mapping and the analysis modules
+    analysis_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:

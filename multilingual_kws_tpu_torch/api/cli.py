@@ -1,5 +1,7 @@
 """The command line: ``train`` and ``inference``, as the reference's run.py,
-and ``pretrain``, as its embedding-training scripts.
+``pretrain``, as its embedding-training scripts, and ``import-tf`` /
+``export-tf``, between the reference's Keras models and this package's
+checkpoints.
 
 Usage:
   python -m multilingual_kws_tpu_torch.api.cli train --keyword mask \
@@ -11,8 +13,11 @@ Usage:
       --train-files train_files.txt --val-files val_files.txt \
       --background-noise _background_noise_/ --output emb_ckpt/
   torchrun --nproc_per_node 4 -m multilingual_kws_tpu_torch.api.cli pretrain ...
+  python -m multilingual_kws_tpu_torch.api.cli import-tf \
+      multilingual_context_73_0.8011/ emb_ckpt/
+  python -m multilingual_kws_tpu_torch.api.cli export-tf mask_model/ mask.keras
 
-Counterpart of the ``train``, ``inference`` and ``pretrain`` subcommands of
+Counterpart of the subcommands of
 ``multilingual_kws_tpu/api/cli.py`` (reference multilingual_kws/run.py:25-304),
 with the same flags, defaults and artifacts: sample validation, the
 ``_background_noise_`` name check, the ``unknown_files.txt`` manifest,
@@ -20,11 +25,12 @@ transfer_learn's defaults (4 epochs x 1 batch x batch 64, LR 1e-3, unknown
 50 %), the detections.json schema, the visualizer layout, and pretraining's
 manifests (commands.txt, train_files.txt, val_files.txt). Checkpoints are
 this package's (``train/checkpoints.py``); an embedding checkpoint written by
-``pretrain`` is what ``train --embedding`` loads. ``--device`` (default
+``pretrain`` or ``import-tf`` is what ``train --embedding`` loads. ``--device`` (default
 ``cuda``) picks the card or the CPU; ``--compute-dtype bfloat16`` runs the
 trunk in bf16 (parameters, embedding and heads stay float32), and float32
 runs without TF32. ``pretrain`` under torchrun is data-parallel over the
 processes (``parallel/mesh.py``; ``--batch-size`` is the global batch).
+``import-tf`` and ``export-tf`` need TensorFlow and refuse to run without it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 import argparse
 import csv
 import glob
+import importlib.util
 import json
 import os
 import tempfile
@@ -93,7 +100,6 @@ def cmd_train(args) -> None:
         device=device,
     )
     print(f"saving model to {args.output}")
-    trunk = result.model.trunk
     ckpt.save_model(
         args.output,
         result.model,
@@ -101,8 +107,7 @@ def cmd_train(args) -> None:
             "kind": "transfer",
             "target": args.keyword,
             "details": result.details,
-            "width_coefficient": trunk.width_coefficient,
-            "depth_coefficient": trunk.depth_coefficient,
+            **ckpt.trunk_metadata(result.model.trunk),
         },
     )
 
@@ -280,6 +285,33 @@ def cmd_pretrain(args) -> None:
     print(f"best val_accuracy {best:.4f}; checkpoints in {args.output}")
 
 
+def _require_tensorflow(command: str) -> None:
+    _require(importlib.util.find_spec("tensorflow") is not None,
+             f"{command} needs the 'tensorflow' package, which is not installed")
+
+
+def cmd_import_tf(args) -> None:
+    """A reference Keras model (SavedModel directory, ``.keras`` or
+    ``.h5``) -> a checkpoint of this package."""
+    from ..models.import_tf import convert_and_save
+
+    device = resolve_device(args.device)
+    _require_tensorflow("import-tf")
+    convert_and_save(args.tf_model, args.output, device)
+    print(f"converted {args.tf_model} -> {args.output}")
+
+
+def cmd_export_tf(args) -> None:
+    """A checkpoint of this package -> a Keras artifact in the reference's
+    layout (drop-in for transfer_learning.py's base_model_path truncation)."""
+    from ..models.export_tf import convert_checkpoint_and_save
+
+    device = resolve_device(args.device)
+    _require_tensorflow("export-tf")
+    convert_checkpoint_and_save(args.checkpoint, args.output, device)
+    print(f"exported {args.checkpoint} -> {args.output}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="multilingual_kws_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -346,6 +378,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "stay float32)")
     pt.add_argument("--device", default="cuda", help="torch device (cuda, or cpu)")
     pt.set_defaults(fn=cmd_pretrain)
+
+    it = sub.add_parser("import-tf", help="convert a reference Keras model to a checkpoint of this package")
+    it.add_argument("tf_model")
+    it.add_argument("output")
+    it.add_argument("--device", default="cuda", help="torch device the model is built on (cuda, or cpu)")
+    it.set_defaults(fn=cmd_import_tf)
+
+    et = sub.add_parser("export-tf", help="convert a checkpoint of this package to a Keras artifact "
+                        "(.keras/.h5 via model.save, else a SavedModel directory)")
+    et.add_argument("checkpoint")
+    et.add_argument("output")
+    et.add_argument("--device", default="cuda", help="torch device the checkpoint is loaded on (cuda, or cpu)")
+    et.set_defaults(fn=cmd_export_tf)
     return p
 
 

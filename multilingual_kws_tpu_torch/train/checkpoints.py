@@ -151,12 +151,26 @@ def load_transfer_model(path, device="cuda", compute_dtype=None) -> Tuple[KWSTra
     return model.eval(), meta
 
 
+def trunk_metadata(trunk: EfficientNet) -> Dict:
+    """The metadata ``sized_trunk`` rebuilds ``trunk`` from: its width and
+    depth coefficients, and its input prefix where it is not Keras' default
+    (so that a default trunk's checkpoint has the JAX package's keys)."""
+    meta = {"width_coefficient": trunk.width_coefficient, "depth_coefficient": trunk.depth_coefficient}
+    if (trunk.input_scale, trunk.input_bias) != (1.0 / 255.0, 0.0):
+        meta.update(input_scale=trunk.input_scale, input_bias=trunk.input_bias)
+    return meta
+
+
 def sized_trunk(meta: Mapping, compute_dtype=None) -> EfficientNet:
     """An EfficientNet trunk with a checkpoint's width and depth
-    coefficients (absent: 1.0, B0), computing in ``compute_dtype``."""
+    coefficients (absent: 1.0, B0) and input prefix (``input_scale`` /
+    ``input_bias``, as ``import-tf`` records a Keras model's; absent:
+    Keras' default 1/255 and 0), computing in ``compute_dtype``."""
     return EfficientNet(
         width_coefficient=float(meta.get("width_coefficient", 1.0)),
         depth_coefficient=float(meta.get("depth_coefficient", 1.0)),
+        input_scale=float(meta.get("input_scale", 1.0 / 255.0)),
+        input_bias=float(meta.get("input_bias", 0.0)),
         compute_dtype=compute_dtype,
     )
 

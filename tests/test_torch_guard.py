@@ -16,13 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from multilingual_kws_tpu_torch.analysis import batch_jobs, distance_filtering, model_analysis, per_speaker, sweeps
 from multilingual_kws_tpu_torch.api import cli
 from multilingual_kws_tpu_torch.data import dataset
-from multilingual_kws_tpu_torch.models import kws_model
+from multilingual_kws_tpu_torch.models import export_tf, import_tf, kws_model
 from multilingual_kws_tpu_torch.ops import micro_torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
-from multilingual_kws_tpu_torch.stream import engine
+from multilingual_kws_tpu_torch.stream import engine, realtime
 from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune, pretrain
 from multilingual_kws_tpu_torch.utils.wav import write_wav
 
@@ -77,6 +78,8 @@ def no_card(monkeypatch):
 _FLAGS = engine.StreamFlags(wav="", ground_truth="", target_keyword="x", detection_thresholds=[0.5])
 _AUDIO = np.zeros(20000, np.float32)
 _SETTINGS = standard_microspeech_model_settings(3)
+_POINT = sweeps.SweepPoint(0, 0, "x", [], [], [], [], 1, 1, 1)
+_JOB = batch_jobs.TLData([], [], 1, 1, "", 1e-3, False, 0.0, "x", [])
 ENTRY_POINTS = {
     "MicroFrontendTorch": lambda: micro_torch.MicroFrontendTorch(),
     "MicroFrontendTorch_fast": lambda: micro_torch.MicroFrontendTorch(mode="fast"),
@@ -101,6 +104,18 @@ ENTRY_POINTS = {
     "eval_stream_test_model_path": lambda: engine.eval_stream_test(
         engine.StreamTarget("x", "x", model_path="no_such_checkpoint", stream_flags=[_FLAGS])
     ),
+    "RealtimeDetector": lambda: realtime.RealtimeDetector("x", lambda specs: specs),
+    "import_tf_checkpoint": lambda: import_tf.import_tf_checkpoint("no_such_model"),
+    "model_from_import": lambda: import_tf.model_from_import({}),
+    "convert_checkpoint_and_save": lambda: export_tf.convert_checkpoint_and_save("no_such_checkpoint", "o.keras"),
+    "cli_import_tf": lambda: cli.main(["import-tf", "no_such_model", "o"]),
+    "cli_export_tf": lambda: cli.main(["export-tf", "no_such_checkpoint", "o.keras"]),
+    "cluster_and_sort": lambda: distance_filtering.cluster_and_sort([f"{i}.wav" for i in range(60)], None),
+    "analyze_model": lambda: model_analysis.analyze_model(None, ["x"], 0.0, "no_such_dir", [], [], []),
+    "run_sweep_point": lambda: sweeps.run_sweep_point(_POINT, "no_such_dir", "no_such_dir"),
+    "run_job": lambda: batch_jobs.run_job(_JOB, [], None, None),
+    "BatchRunner": lambda: batch_jobs.BatchRunner("jobs.pkl", [], None, None),
+    "per_speaker_eval": lambda: per_speaker.per_speaker_eval("x", {}, [], None),
 }
 
 
@@ -108,6 +123,15 @@ ENTRY_POINTS = {
 def test_entry_points_raise_without_a_card(no_card, name):
     with pytest.raises(RuntimeError, match="device"):
         ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("command", ["import-tf", "export-tf"])
+def test_tf_subcommands_name_the_missing_package(monkeypatch, tmp_path, command):
+    """Without TensorFlow, import-tf and export-tf exit with a message that
+    names it (a refusal: nothing else converts the models)."""
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    with pytest.raises(SystemExit, match="'tensorflow' package"):
+        cli.main([command, str(tmp_path / "in"), str(tmp_path / "out"), "--device", "cpu"])
 
 
 def test_cpu_entry_points_run_without_a_card(no_card, tmp_path):
