@@ -6,7 +6,8 @@
                                        # epoch's and a pretraining epoch's time goes
 
 Builds the port's CUDA kernels from ``multilingual_kws_tpu_torch/csrc`` with
-nvcc, then:
+nvcc into a build cache of its own (``utils/compilation_cache.py``, through
+``$MKWS_COMPILATION_CACHE``, which its fresh processes inherit), then:
 
   (a) holds each kernel against its plain PyTorch version on the card (==),
       on a seeded 60 s stream and on edge cases, and ``stream_suffix`` over
@@ -105,7 +106,9 @@ nvcc, then:
       augment and one clip frontend a train and calibration batch, one clip
       frontend a validation batch); one card step == the same step on the
       CPU (same global batch and drop-connect masks; loss rtol 1e-5,
-      gradients rtol 1e-4, atol 1e-4 of each tensor's largest); both kernels
+      gradients rtol 1e-4, atol 1e-4 of each tensor's largest) from a state
+      that is the same in every run (``pretrain_gate``: the seeded init, BN
+      calibrated on the CPU; each tensor's error is printed); both kernels
       == plain at the pretraining batch. It times the step (median and best
       of five epochs) and one profiled epoch's device busy time and idle
       share. Then the CLI: ``pretrain`` (one short epoch), ``train
@@ -138,13 +141,32 @@ nvcc, then:
       ``run_job`` (its pickled detections == a direct ``eval_stream_test``
       of its saved model; a second call skips), ``streaming_roc`` on that
       pickle and ``analyze_model``, each with its wall and launches.
+  (k) the DS-CNN, the native host path, profiling and the build cache, on
+      phase e's corpus and the first K_SECONDS of (c)'s stream: the DS-CNN
+      at the reference's width (64 filters, 4 blocks, 3 labels) trained
+      K_EPOCHS x K_STEPS steps at batch 64 from ``AudioDataset.train_batches``
+      (B4 then B1 a step, launches counted) with ``dscnn_optimizer``
+      (learning rate checked at steps 0, 12, 24 and 36 epochs in), epoch
+      losses finite and falling, one card step against the CPU's from the
+      seeded init (same batch, same dropout masks; the bounds above), the
+      step time and the batch-eval accuracy; the native host frontend and
+      wav loader ``==`` the card (``featurize_files`` native against device,
+      ``stream_features``, ``load_batch`` against ``read_wav_int16``) with
+      their walls and host threads; a fresh process in another checkout of
+      the package that loads every library from the shared build cache and
+      compiles nothing, then runs ``utils/profiling.trace`` around one
+      ``calculate_streaming_accuracy`` inside a ``PhaseTimer`` phase, its
+      Chrome trace holding both stream kernels and the phase's span; and the
+      wav2vec2 embedder, which needs ``transformers``: a tiny random model
+      (no hub weights) on the card against the CPU, within 1e-4; without the
+      package the script says so and checks that the error names it.
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
 
 Kernel times are device times: the mean duration of the kernel's own
 events in a ``torch.profiler`` trace of 20 calls (``kernel_ms``), which
-also gives the launch's grid; a run whose three traces in a row each hold
+also gives the launch's grid; a run whose five traces in a row each hold
 fewer than half of those events fails. The wrapper loop's time per call (CUDA events
 around 20 calls, ``cuda_ms``) is printed beside it as host µs per call: at
 small shapes it measures the Python wrapper's dispatch, not the kernel.
@@ -161,6 +183,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pickle
 import subprocess
 import sys
@@ -285,16 +308,20 @@ def device_trace(torch, fn, iters: int = 1, warmup: int = 1, expect=None):
     (kernels, copies and sets, each with its name, start and duration in µs
     and, for a kernel, its grid and block) and the wall seconds of the
     profiled calls, which end in a synchronize. A trace may miss an event
-    at its start, and now and then comes back with few or none: with
-    ``expect`` = (name, n), it is taken again, up to three times, until it
-    holds at least n kernels of that name; if none does, it fails."""
+    at its start, and now and then comes back with few or none: the calls
+    start 20 ms into the trace, and with ``expect`` = (name, n) it is taken
+    again, up to five times, until it holds at least n kernels of that name
+    (each retry is printed); if none does, it fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(5):
+        if attempt:
+            print(f"device_trace: {got} {expect[0]} events of {expect[1]} wanted; trace {attempt + 1}")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
             t = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -1545,6 +1572,59 @@ def bf16_op_rounding(torch, model, x):
     return worst
 
 
+def pretrain_gate(torch, specs, labels, group):
+    """Phase i's card-vs-CPU gate: one pretraining step on the card (under
+    ``group``) and the same step on the CPU, with the same global batch and
+    the same drop-connect masks (one CPU generator's draws), from a state
+    that is the same in every run: the float32 embedding model as
+    ``pretrain()`` initialises it (``lecun_init_``, seed 0), its BN
+    statistics calibrated on the CPU on this batch. (The state card
+    training leaves is not bitwise repeatable from run to run.) Loss rtol
+    1e-5; gradients rtol 1e-4 with atol 1e-4 of each tensor's largest. A
+    non-residual block's last BN bias has an exact gradient of zero (its
+    shift reaches the loss only through train-mode BNs): both sides hold
+    rounding there, held to 1e-5 of the model's largest gradient. Returns
+    each tensor's max |card - CPU| over its largest |CPU| value, and hashes
+    of the state and the batch (equal in every run)."""
+    import copy
+    import hashlib
+
+    from multilingual_kws_tpu_torch.models.kws_model import lecun_init_, make_embedding_model
+    from multilingual_kws_tpu_torch.train.steps import calibrate_batch_stats, flat_adam, make_pretrain_step
+
+    model = lecun_init_(make_embedding_model(PT_WORDS + 1, device="cpu"), seed=0)
+    calibrate_batch_stats(model, [specs.cpu()], drop_generator=torch.Generator().manual_seed(4))
+
+    def digest(tensors):
+        h = hashlib.sha1()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    state_hash, batch_hash = digest(model.state_dict().values()), digest([specs, labels])
+    got = {}
+    for where, m, x, y, grp in (("cuda", copy.deepcopy(model).cuda(), specs, labels, group),
+                                ("cpu", copy.deepcopy(model), specs.cpu(), labels.cpu(), None)):
+        step, _ = make_pretrain_step(m, flat_adam(m.parameters(), 1e-3), grp)
+        loss = float(step(x, y, torch.Generator().manual_seed(5))["loss"])
+        got[where] = loss, {n: p.grad.cpu() for n, p in m.named_parameters()}
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"pretrain step loss {lg} on the card, {lc} on the CPU")
+    trunk = model.trunk
+    zero = {f"trunk.{b}.project_bn.bias" for b in trunk.block_names if not getattr(trunk, b).residual}
+    largest = max(float(w.abs().max()) for w in gc.values())
+    errors = {}
+    for n, w in gc.items():
+        if n in zero:
+            check(max(float(w.abs().max()), float(gg[n].abs().max())) < 1e-5 * largest, f"gradient of {n}")
+            continue
+        scale = float(w.abs().max())
+        err = float((gg[n] - w).abs().max())
+        check(torch.allclose(gg[n], w, rtol=1e-4, atol=1e-4 * scale), f"pretrain gradient of {n}: {err} (max {scale})")
+        errors[n] = err / max(scale, 1e-30)
+    return {"errors": errors, "loss": (lg, lc), "state": state_hash, "batch": batch_hash}
+
+
 def free_port() -> int:
     import socket
 
@@ -1659,32 +1739,13 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
                        "wall_epoch": wall_epoch}
 
     # 2. one step on the card against the same step on the CPU: the same
-    # global batch, the same drop-connect masks (one CPU generator's draws)
+    # global batch, the same drop-connect masks (one CPU generator's draws),
+    # from a state that is the same in every run (pretrain_gate)
     ds, bank = runs["float32"]["ds"], runs["float32"]["bank"]
     specs, labels = next(ds.train_batches_resident(corpus["train"], PT_BATCH, 1, labels=train_labels,
                                                    single_target=False, bank=bank))
-    got = {}
-    for where, m, x, y, grp in (("cuda", copy.deepcopy(runs["float32"]["model"]), specs, labels, group),
-                                ("cpu", copy.deepcopy(runs["float32"]["model"]).cpu(), specs.cpu(), labels.cpu(), None)):
-        step, _ = make_pretrain_step(m, flat_adam(m.parameters(), 1e-3), grp)
-        loss = float(step(x, y, torch.Generator().manual_seed(5))["loss"])
-        got[where] = loss, {n: p.grad.cpu() for n, p in m.named_parameters()}, m.trunk
-    (lg, gg, trunk), (lc, gc, _) = got["cuda"], got["cpu"]
-    check(abs(lg - lc) <= 1e-5 * abs(lc), f"pretrain step loss {lg} on the card, {lc} on the CPU")
-    # a non-residual block's last BN bias has an exact gradient of zero (its
-    # shift reaches the loss only through train-mode BNs): both sides hold
-    # rounding there, held to 1e-5 of the model's largest gradient
-    zero = {f"trunk.{b}.project_bn.bias" for b in trunk.block_names if not getattr(trunk, b).residual}
-    largest = max(float(w.abs().max()) for w in gc.values())
-    step_err = 0.0
-    for n, w in gc.items():
-        if n in zero:
-            check(max(float(w.abs().max()), float(gg[n].abs().max())) < 1e-5 * largest, f"gradient of {n}")
-            continue
-        scale = float(w.abs().max())
-        err = float((gg[n] - w).abs().max())
-        check(torch.allclose(gg[n], w, rtol=1e-4, atol=1e-4 * scale), f"pretrain gradient of {n}: {err} (max {scale})")
-        step_err = max(step_err, err / max(scale, 1e-30))
+    step_gate = pretrain_gate(torch, specs, labels, group)
+    step_err = max(step_gate["errors"].values())
 
     # 3. the two kernels == plain at the pretraining batch (64 clips of the
     # corpus' bank, its augmentation parameters)
@@ -1884,10 +1945,13 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
               f"one profiled epoch: wall {r['wall_epoch']:.4f} s, device busy {r['busy']:.3f} ms, idle share "
               f"{r['idle']:.4f}")
     print(f"phase i: corpus of {n_clips} clips ({len(corpus['train'])} to train, {len(corpus['val'])} to validate; "
-          f"{corpus_bytes} bytes) written in {t_corpus:.2f} s; card vs CPU step: loss {lg:.7f} / {lc:.7f}, max "
-          f"gradient error {step_err:.2e} of each tensor's largest ({len(zero)} zero-gradient biases within 1e-5 of "
-          f"the largest); augment_quantize at the pretraining batch: max |kernel - plain| {int(diff.max())} on a "
-          f"share {share}; clip_features == plain")
+          f"{corpus_bytes} bytes) written in {t_corpus:.2f} s; card vs CPU step (the seeded init, BN calibrated on "
+          f"the CPU; state {step_gate['state']}, batch {step_gate['batch']}): loss {step_gate['loss'][0]:.7f} / "
+          f"{step_gate['loss'][1]:.7f}, max gradient error {step_err:.2e} of each tensor's largest, the five largest "
+          f"{json.dumps(dict(sorted(step_gate['errors'].items(), key=lambda kv: -kv[1])[:5]))}, trunk.stem.conv.weight "
+          f"{step_gate['errors']['trunk.stem.conv.weight']:.2e}; augment_quantize at the pretraining batch: max "
+          f"|kernel - plain| {int(diff.max())} on a share {share}; clip_features == plain")
+    print(f"phase i: card vs CPU step, each tensor's max |card - CPU| / max |CPU|: {json.dumps(step_gate['errors'])}")
     print(f"phase i: CLI pretrain (1 epoch x 5 steps) {cli_pretrain_s:.2f} s, train --compute-dtype bfloat16 from "
           f"its checkpoint {cli_train_s:.2f} s, inference --compute-dtype bfloat16 {cli_inference_s:.3f} s at "
           f"{cli_paths['threshold']}: {cli_tags}; launches {launches_cli}")
@@ -2154,6 +2218,332 @@ def analysis_phase(torch, fe, ft_model, corpus, wave, labels, work: Path):
             "analyze_model": l_analysis}
 
 
+K_BATCH = 64  # phase k: the DS-CNN's batch
+K_STEPS = 16  # steps an epoch: dscnn_optimizer(steps_per_epoch=K_STEPS)
+K_EPOCHS = 5  # 80 steps: the learning rate stays 5e-4 (its first switch is at epoch 12)
+K_SECONDS = 60  # the stream's seconds that the native frontend and the profiled stream run on
+# phase k: a float32 DS-CNN gradient's distance from the float64 one, of each
+# tensor's largest (``dscnn_gate``; tests/test_torch_dscnn.py measures the
+# CPU's on a training batch of phase e's corpus and holds it under half of this)
+K_F32_GRAD_TOL = 2e-2
+
+# phase k: a fresh process in another checkout of the package, with the
+# shared build cache on: what it finds built and what it compiles; then a
+# calculate_streaming_accuracy under utils/profiling.trace, inside a
+# PhaseTimer phase (argv: the checkout, the stream's wav and labels, the
+# trace directory)
+FRESH_K = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+from multilingual_kws_tpu_torch import native
+from multilingual_kws_tpu_torch.ops import _build
+from multilingual_kws_tpu_torch.utils.compilation_cache import enable_compilation_cache
+
+enabled = enable_compilation_cache()
+found = {n: _build._target(n).exists() for n in _build.SIGNATURES}
+found.update({n: native.target(n).exists() for n in ("microfrontend", "wavloader")})
+t1 = time.perf_counter()
+compiled = sorted(_build.build())
+libs = [_build.load(n) for n in _build.SIGNATURES] + [native.load(n, {}) for n in ("microfrontend", "wavloader")]
+cache = {"enabled": enabled, "build_dir": str(_build.BUILD_DIR), "found": found, "compiled": compiled,
+         "loaded": len(libs), "load_s": time.perf_counter() - t1, "wall_s": time.perf_counter() - t0}
+
+import torch
+from multilingual_kws_tpu_torch.models.kws_model import make_transfer_model, seeded_init_
+from multilingual_kws_tpu_torch.ops import cuda_fft, cuda_frontend
+from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
+from multilingual_kws_tpu_torch.utils import profiling
+
+flags = StreamFlags(wav=sys.argv[2], ground_truth=sys.argv[3], target_keyword="alpha", detection_thresholds=[0.5])
+model = seeded_init_(make_transfer_model(device="cuda"), seed=0)
+calculate_streaming_accuracy(model, [flags], batch_size=2048, verbose=False)  # cuDNN set-up
+timer = profiling.PhaseTimer()
+cuda_fft.stream_prefix.launches = cuda_frontend.stream_suffix.launches = 0
+with profiling.trace(sys.argv[4]) as path:
+    with timer.phase("stream_60s"):
+        calculate_streaming_accuracy(model, [flags], batch_size=2048, verbose=False)
+events = json.loads(path.read_text())["traceEvents"]
+kernels = [e for e in events if e.get("cat") == "kernel"]
+trace = {"bytes": path.stat().st_size, "events": len(events), "kernel_events": len(kernels),
+         "ours": {k: sum(f"{k}_kernel" in e["name"] for e in kernels) for k in ("stream_prefix", "stream_suffix")},
+         "spans": sorted(e.get("cat") for e in events if e.get("name") == "stream_60s"),
+         "launches": {"stream_prefix": cuda_fft.stream_prefix.launches, "stream_suffix": cuda_frontend.stream_suffix.launches},
+         "report": timer.report()}
+print("FRESH_K " + json.dumps({"cache": cache, "trace": trace}))
+"""
+
+
+def dscnn_gate(torch, state, specs, y, loss_of):
+    """Phase k's card-vs-CPU DS-CNN step: one train-mode step from ``state``
+    on the card and on the CPU, each in float64 and in float32 (BN keeps
+    float64 input in float64), with the same batch and the same dropout
+    masks (one CPU generator's draws).
+
+    Bounds. Losses rtol 1e-5, card against CPU, in both precisions. In
+    float64 the card's gradients match the CPU's within rtol 1e-4 and atol
+    1e-4 of each tensor's largest: the same function. In float32, each
+    side's gradients lie within K_F32_GRAD_TOL of each tensor's largest of
+    the float64 CPU gradient. Error model: below the global pooling every
+    gradient comes out of train-mode BNs' backward, which subtracts the
+    batch mean of a gradient that is nearly the same at every position (the
+    pooling spreads one value over the map), and a conv's weight gradient
+    then sums, over the batch's 32,000 positions, products whose exact sum
+    has that mean's share removed; float32 keeps few digits of either
+    difference, and in another order on each side (torch's CPU sums
+    pairwise, cuDNN by its own tiling), so card and CPU float32 disagree by
+    ~1e-4 of a tensor's largest (NVIDIA H100 80GB HBM3, 700 W) and float32
+    sits up to ~3e-3 from the float64 gradient on some of phase e's batches
+    (tests/test_torch_dscnn.py measures it on the CPU). Gradients that
+    vanish: a conv bias feeds a train-mode BN, which removes any shift, so
+    its gradient is exactly zero (held to 1e-9 of the model's largest in
+    float64); and at the seeded init, whose BN biases are 0, the stem's and
+    blocks 1-3's last BN scale reach the loss through relu (positively
+    homogeneous), a depthwise conv and a train-mode BN, which removes any
+    per-channel scale but for its eps: their float64 gradients are ~3e-7 of
+    the model's largest. Where the float64 gradient is below 1e-4 of the
+    model's largest, float32 holds rounding, held to 1e-4 of the model's
+    largest on both sides."""
+    from multilingual_kws_tpu_torch.models.dscnn import DSCNN
+
+    got = {}
+    for where in ("cuda", "cpu"):
+        for dtype in (torch.float64, torch.float32):
+            m = DSCNN(3, device=where)
+            m.load_state_dict(state)
+            m.to(dtype).train()
+            loss = loss_of(m, specs.to(where, dtype), y.to(where), torch.Generator().manual_seed(5))
+            loss.backward()
+            got[where, dtype] = float(loss.detach()), {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+    for dtype in (torch.float64, torch.float32):
+        lg, lc = got["cuda", dtype][0], got["cpu", dtype][0]
+        check(abs(lg - lc) <= 1e-5 * abs(lc), f"DS-CNN step loss at {dtype}: {lg} on the card, {lc} on the CPU")
+    g64, c64 = got["cuda", torch.float64][1], got["cpu", torch.float64][1]
+    g32, c32 = got["cuda", torch.float32][1], got["cpu", torch.float32][1]
+    blocks = [n.split(".")[0] for n in state if n.endswith(".dw.weight")]
+    zero = {"stem.bias"} | {f"{b}.{c}.bias" for b in blocks for c in ("dw", "pw")}
+    largest = max(float(w.abs().max()) for w in c64.values())
+    vanish = {n for n, w in c64.items() if float(w.abs().max()) < 1e-4 * largest}
+    err = {"f64 card-cpu": 0.0, "f32 card-cpu": 0.0, "f32 card-f64": 0.0, "f32 cpu-f64": 0.0,
+           "zero f64": 0.0, "vanishing f32": 0.0}
+    for n, w in c64.items():
+        if n in zero:
+            z64 = max(float(g64[n].abs().max()), float(w.abs().max())) / largest
+            check(z64 < 1e-9, f"DS-CNN float64 gradient of {n}, exactly zero: {z64:.2e} of the largest")
+            err["zero f64"] = max(err["zero f64"], z64)
+        else:
+            scale = float(w.abs().max())
+            check(torch.allclose(g64[n], w, rtol=1e-4, atol=1e-4 * scale),
+                  f"DS-CNN float64 gradient of {n}: {float((g64[n] - w).abs().max()) / scale:.2e} of its largest")
+            err["f64 card-cpu"] = max(err["f64 card-cpu"], float((g64[n] - w).abs().max()) / scale)
+        if n in vanish:
+            z32 = max(float(g32[n].abs().max()), float(c32[n].abs().max())) / largest
+            check(z32 < 1e-4, f"DS-CNN float32 gradient of {n}, vanishing: {z32:.2e} of the model's largest")
+            err["vanishing f32"] = max(err["vanishing f32"], z32)
+            continue
+        scale = float(w.abs().max())
+        for key, a, b in (("f32 card-cpu", g32[n], c32[n]), ("f32 card-f64", g32[n], w), ("f32 cpu-f64", c32[n], w)):
+            err[key] = max(err[key], float((a - b).abs().max()) / scale)
+        check(err["f32 card-f64"] <= K_F32_GRAD_TOL and err["f32 cpu-f64"] <= K_F32_GRAD_TOL,
+              f"DS-CNN float32 gradient of {n} off the float64 one: {err}")
+    return {"loss": (got["cuda", torch.float32][0], got["cpu", torch.float32][0]), "err": err,
+            "zero": sorted(zero), "vanishing": sorted(vanish)}
+
+
+def dscnn_phase(torch, fe, corpus, wave, labels, work: Path, smi: str):
+    """Phase k: the DS-CNN at the reference's width on phase e's corpus, the
+    native host frontend and wav loader against the card, the profiling
+    hooks around a stream, the shared build cache from another checkout, and
+    the wav2vec2 embedder (see the module docstring)."""
+    import copy
+    import importlib.util
+    import shutil
+
+    import torch.nn.functional as F
+
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+    from multilingual_kws_tpu_torch.models.dscnn import DSCNN, dscnn_optimizer
+    from multilingual_kws_tpu_torch.models.kws_model import lecun_init_
+    from multilingual_kws_tpu_torch.models.wav2vec2_embed import Wav2Vec2Embedder
+    from multilingual_kws_tpu_torch.native import host_frontend, wavloader
+    from multilingual_kws_tpu_torch.ops import cuda_augment, cuda_clip
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+    from multilingual_kws_tpu_torch.train.evaluate import featurize_files
+    from multilingual_kws_tpu_torch.utils.wav import read_wav_int16, write_wav
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    counters = {"augment_quantize": cuda_augment.augment_quantize, "clip_features": cuda_clip.clip_features}
+
+    # 1. the DS-CNN (filters 64, 4 blocks, 3 labels) trained on batches of
+    # AudioDataset.train_batches (augment_quantize, then clip_features)
+    ds = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], corpus["bg_dir"], corpus["unknown"],
+                      seed=7, device="cuda")
+    check(ds.commands == ["_silence_", "_unknown_", "alpha"], f"labels {ds.commands}")
+    model = lecun_init_(DSCNN(3, device="cpu"), seed=0).to(dev)
+    init = copy.deepcopy(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = dscnn_optimizer(steps_per_epoch=K_STEPS)(model.parameters())
+    drop = torch.Generator(device=dev).manual_seed(2)
+
+    def loss_of(m, specs, y, gen):
+        # categorical cross-entropy on the softmax, clipped as Keras does
+        p = m(specs, dropout_generator=gen)
+        return F.nll_loss(torch.log(p.clamp(1e-7, 1 - 1e-7)), y)
+
+    batches = ds.train_batches(corpus["train"], K_BATCH, K_EPOCHS * K_STEPS + 1)
+    epoch_loss, epoch_ms = [], []
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(K_EPOCHS):
+        sync()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(K_STEPS):
+            specs, y = next(batches)
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss = loss_of(model, specs, y, drop)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        epoch_loss.append(float(torch.stack(losses).mean()))
+        sync()
+        epoch_ms.append((time.perf_counter() - t0) / K_STEPS * 1e3)
+    dscnn_launches = {k: fn.launches for k, fn in counters.items()}
+    n_steps = K_EPOCHS * K_STEPS
+    check(dscnn_launches == {"augment_quantize": n_steps, "clip_features": n_steps},
+          f"DS-CNN training launches {dscnn_launches}, expected {n_steps} of each")
+    check(np.isfinite(epoch_loss).all(), f"a non-finite DS-CNN loss {epoch_loss}")
+    check(epoch_loss[-1] < epoch_loss[0], f"DS-CNN epoch losses did not fall: {epoch_loss}")
+    check(opt.count == n_steps and opt.lr() == 5e-4, f"optimizer at count {opt.count}, lr {opt.lr()}")
+    probe = dscnn_optimizer(steps_per_epoch=K_STEPS)([torch.nn.Parameter(torch.zeros(1, device=dev))])
+    schedule = {}
+    for step, lr in ((0, 5e-4), (12 * K_STEPS, 1e-4), (24 * K_STEPS, 2e-5), (36 * K_STEPS, 1e-5)):
+        probe.count = step
+        schedule[step] = probe.lr()
+        check(schedule[step] == lr, f"learning rate {schedule[step]} at step {step}, expected {lr}")
+
+    # one step on the card against the same step on the CPU: the same batch,
+    # the same dropout masks (one CPU generator's draws), from the seeded
+    # init (a state that is the same in every run), in float64 and float32
+    # (dscnn_gate)
+    specs, y = next(batches)
+    gate = dscnn_gate(torch, init, specs, y, loss_of)
+    # batch eval after training: the 20 validation clips and the 40 unknowns
+    model.eval()
+    files = corpus["val"] + corpus["unknown"]
+    want = ["alpha"] * len(corpus["val"]) + ["_unknown_"] * len(corpus["unknown"])
+    correct, predicted = 0, np.zeros(3, np.int64)
+    with torch.no_grad():
+        for x, t in ds.eval_batches(files, K_BATCH, labels=want, single_target=False):
+            top = model(x).argmax(-1)
+            correct += int((top == t).sum())
+            predicted += np.bincount(top.cpu().numpy(), minlength=3)
+    accuracy = correct / len(files)
+
+    # 2. the native host frontend and wav loader against the card, ==
+    threads = host_frontend.default_threads()
+    clips = corpus["train"] + corpus["val"] + corpus["unknown"]
+    native_fe = host_frontend.NativeMicroFrontend()  # builds the library (g++) at first use
+    walls = {}
+    for backend in ("device", "native", "device", "native"):
+        sync()
+        t0 = time.perf_counter()
+        feats = featurize_files(clips, backend=backend, device="cuda")
+        walls.setdefault(backend, []).append(time.perf_counter() - t0)
+        if backend == "device":
+            dev_feats = feats
+        else:
+            check(np.array_equal(feats, dev_feats), "featurize_files: native != device")
+    i16 = np.clip(np.trunc(wave[: K_SECONDS * SR] * 32768.0), -32768, 32767).astype(np.int16)
+    n_w = -(-(K_SECONDS * SR - SR) // 320)
+    audio = torch.from_numpy(i16).to(dev)
+    card = fe.stream_features(audio, n_w)
+    sync()
+    t0 = time.perf_counter()
+    card = fe.stream_features(audio, n_w).cpu().numpy()
+    wall_card_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = native_fe.stream_features(i16, n_w)
+    wall_native_stream = time.perf_counter() - t0
+    check(np.array_equal(host, card), f"native stream features != the card's on {n_w} windows")
+    t0 = time.perf_counter()
+    batch = wavloader.load_batch(clips, SR)
+    wall_loader = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader = np.stack([read_wav_int16(f, desired_samples=SR)[0] for f in clips])
+    wall_reader = time.perf_counter() - t0
+    check(np.array_equal(batch, reader), "load_batch != read_wav_int16 on the corpus")
+
+    # 3. in a fresh process of another checkout of the package: the shared
+    # build cache (nothing compiled), then profiling: one
+    # calculate_streaming_accuracy on K_SECONDS of the stream inside a
+    # PhaseTimer phase, under utils/profiling.trace. (In this long process
+    # such a trace held none of the stream kernels' events in five tries,
+    # though a CUDA-only trace here and the same trace in a fresh process
+    # hold them: PERF.md §7.)
+    wav, gt = work / "stream_k.wav", work / "labels_k.txt"
+    write_wav(wav, wave[: K_SECONDS * SR], SR)
+    gt.write_text("".join(f"{lab}, {ms}\n" for lab, ms in labels if ms < K_SECONDS * 1000))
+    other = work / "other_checkout"
+    shutil.copytree(ROOT / PKG, other / PKG, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    out = subprocess.run([sys.executable, "-c", FRESH_K, str(other), str(wav), str(gt), str(work / "trace_k")],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"the fresh process of phase k failed: {out.stderr[-3000:]}")
+    fresh = json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("FRESH_K ")][-1][8:])
+    cache, trace = fresh["cache"], fresh["trace"]
+    check(cache["enabled"] and all(cache["found"].values()) and cache["compiled"] == [],
+          f"another checkout did not load the cached libraries: {cache}")
+    check(not (other / PKG / "_build").exists(), "another checkout built into its own _build")
+    check(trace["launches"] == {"stream_prefix": 1, "stream_suffix": 1}, f"profiled stream launches {trace['launches']}")
+    check(all(trace["ours"].values()) and trace["spans"],
+          f"the trace holds kernel events {trace['ours']} and phase spans {trace['spans']}")
+
+    # 5. the wav2vec2 embedder needs the transformers package
+    if importlib.util.find_spec("transformers") is None:
+        try:
+            Wav2Vec2Embedder(device="cuda", model=object(), extractor=object())
+            fail("Wav2Vec2Embedder ran without the transformers package")
+        except ImportError as e:
+            check("'transformers'" in str(e), f"the embedder's error does not name the package: {e}")
+            w2v = f"not run on this machine: it has no 'transformers' package (the embedder raises: {e}); " \
+                  "tests/test_torch_wav2vec2.py holds it against the JAX package's on the CPU"
+    else:
+        from transformers import Wav2Vec2Config, Wav2Vec2FeatureExtractor, Wav2Vec2Model
+
+        torch.manual_seed(0)
+        tiny = Wav2Vec2Model(Wav2Vec2Config(hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                                            intermediate_size=64, conv_dim=(16,) * 7, num_feat_extract_layers=7))
+        waves = [wave[i * SR : (i + 1) * SR] for i in range(4)]
+        ref = Wav2Vec2Embedder(device="cpu", model=copy.deepcopy(tiny), extractor=Wav2Vec2FeatureExtractor())
+        got_emb = Wav2Vec2Embedder(device="cuda", model=tiny, extractor=Wav2Vec2FeatureExtractor()).embed(waves)
+        err = float(np.abs(got_emb - ref.embed(waves)).max())
+        check(err < 1e-4, f"wav2vec2 embeddings on the card differ from the CPU's by {err}")
+        w2v = f"a tiny random model on the card against the CPU: max |delta| {err:.2e}"
+
+    print(f"phase k [{smi}]: DS-CNN (filters 64, 4 blocks, 3 labels, {n_params} parameters) at batch {K_BATCH}, "
+          f"{K_EPOCHS} epochs x {K_STEPS} steps from AudioDataset.train_batches: epoch losses "
+          f"{[round(v, 4) for v in epoch_loss]}; step {float(np.median(epoch_ms)):.3f} ms (median of {K_EPOCHS} "
+          f"epochs, best {min(epoch_ms):.3f}: {[round(v, 3) for v in epoch_ms]}); launches {dscnn_launches}; "
+          f"learning rate by step {schedule}; card vs CPU step from the seeded init: float32 loss "
+          f"{gate['loss'][0]:.7f} / {gate['loss'][1]:.7f}; max gradient errors, of each tensor's largest (of the "
+          f"model's for the {len(gate['zero'])} exact zeros and the {len(gate['vanishing'])} vanishing "
+          f"{gate['vanishing']}) {json.dumps({k: float(f'{v:.3g}') for k, v in gate['err'].items()})}; "
+          f"batch-eval accuracy {accuracy:.4f} (predicted {dict(zip(ds.commands, predicted.tolist()))}) on "
+          f"{len(files)} clips")
+    print(f"phase k [{smi}]: native == card: featurize_files on {len(clips)} clips (walls s, two runs each: device "
+          f"{[round(v, 4) for v in walls['device']]}, native {[round(v, 4) for v in walls['native']]} on {threads} host "
+          f"threads); stream features of {n_w} windows ({K_SECONDS} s): card {wall_card_stream:.4f} s (with the copy "
+          f"to the host), native {wall_native_stream:.4f} s on {threads} threads; load_batch == read_wav_int16 on "
+          f"{len(clips)} clips: {wall_loader:.4f} s on {wavloader.default_threads()} threads, reader {wall_reader:.4f} s")
+    report = trace.pop("report")
+    print(f"phase k [{smi}]: a fresh process of another checkout with the shared build cache: {json.dumps(cache)}; "
+          f"there profiling.trace around calculate_streaming_accuracy on {K_SECONDS} s (phase c's model width, seeded "
+          f"weights): {json.dumps(trace)}; PhaseTimer report:\n{report}")
+    print(f"phase k [{smi}]: wav2vec2 embedder: {w2v}")
+
+
 def main() -> int:
     import torch
 
@@ -2172,6 +2562,7 @@ def main() -> int:
     from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
     from multilingual_kws_tpu_torch.probes import sass
     from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
+    from multilingual_kws_tpu_torch.utils.compilation_cache import enable_compilation_cache
     from multilingual_kws_tpu_torch.utils.wav import write_wav
 
     dev = torch.device("cuda")
@@ -2182,6 +2573,13 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    # the shared build cache (utils/compilation_cache.py) in a directory of
+    # this run: the kernels and host libraries are built there, and the
+    # fresh processes of phases h and k (which inherit the variable) load
+    # them from there
+    cache_dir = tempfile.TemporaryDirectory()
+    os.environ["MKWS_COMPILATION_CACHE"] = cache_dir.name
+    check(enable_compilation_cache() and _build.BUILD_DIR == Path(cache_dir.name), "the build cache is not on")
     t0 = time.time()
     logs = _build.build()
     for name, log in logs.items():
@@ -2418,6 +2816,8 @@ def main() -> int:
     pretrain_epoch = pretrain_phase(torch, model, ft_model, corpus, finetune_epoch, cli_paths, Path(work.name))
     # (j) the realtime detector, the TF-free weight mapping and the analysis modules
     analysis_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
+    # (k) the DS-CNN, the native host path, profiling, the build cache, wav2vec2
+    dscnn_phase(torch, fe, corpus, wave, labels, Path(work.name), smi)
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2441,6 +2841,7 @@ def main() -> int:
             )
     torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": kernels}))
+    cache_dir.cleanup()
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

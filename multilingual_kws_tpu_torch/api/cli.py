@@ -31,6 +31,10 @@ trunk in bf16 (parameters, embedding and heads stay float32), and float32
 runs without TF32. ``pretrain`` under torchrun is data-parallel over the
 processes (``parallel/mesh.py``; ``--batch-size`` is the global batch).
 ``import-tf`` and ``export-tf`` need TensorFlow and refuse to run without it.
+On a card every subcommand builds and loads the port's compiled libraries in
+the shared cache (``utils/compilation_cache.py``: ``$MKWS_COMPILATION_CACHE``
+or ``~/.cache/multilingual_kws_tpu_torch/build``), as the JAX package's CLI
+enables its compilation cache.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from .. import resolve_device
+from ..utils.compilation_cache import enable_compilation_cache
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -396,6 +401,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    # after parsing: --help and bad flags pay nothing; on a card the kernels
+    # and host libraries are built into (and loaded from) the shared cache
+    enable_compilation_cache()
     args.fn(args)
 
 

@@ -30,7 +30,8 @@ only those clips (or bank indices), and the augment kernel and the frontend
 run on those rows only. A process's rows are therefore the rows one process
 would make of the global batch.
 
-Clips are read with ``utils/wav.read_wav_int16``.
+Clips are read by the native threaded wav loader (``native/wavloader.py``,
+batches of cache misses), whose rows equal ``utils/wav.read_wav_int16``'s.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..native.wavloader import load_batch
 from ..ops.augment import AugmentParams, SpecAugParams, SpecMaskDraws, apply_spec_masks, draw_spec_masks, pad_background_bank
 from ..ops.cuda_augment import AugmentDraws, augment_quantize, draw_augment_params
 from ..ops.micro_exact import FrontendConfig
@@ -213,10 +215,18 @@ class AudioDataset:
         return cached
 
     def _load_many(self, paths: Sequence[str]) -> np.ndarray:
-        """Clips -> int16 (N, samples)."""
-        out = np.empty((len(paths), self.model_settings.desired_samples), np.int16)
+        """Clips -> int16 (N, samples): the cache misses are read in one call
+        of the native threaded wav loader (``native/wavloader.py``), each row
+        equal to ``_load``'s."""
+        n = self.model_settings.desired_samples
+        misses = list(dict.fromkeys(p for p in paths if p not in self._wav_cache))
+        loaded = dict(zip(misses, load_batch(misses, n)))
+        for p, row in loaded.items():
+            if len(self._wav_cache) < 4096:
+                self._wav_cache[p] = row
+        out = np.empty((len(paths), n), np.int16)
         for i, p in enumerate(paths):
-            out[i] = self._load(p)
+            out[i] = loaded[p] if p in loaded else self._wav_cache[p]
         return out
 
     # -- public pipelines --------------------------------------------------------

@@ -106,12 +106,13 @@ def as_dtype(dtype: Union[str, torch.dtype, None]) -> torch.dtype:
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d (eps 1e-3, Keras momentum 0.99) with the train-mode
+    """BatchNorm2d (eps 1e-3 unless given, Keras momentum 0.99) with the train-mode
     semantics of Flax's ``nn.BatchNorm``; the ``state_dict`` keys of
     ``nn.BatchNorm2d``.
 
     In train mode it takes the batch mean and the biased variance over (N,
-    H, W) in float32, as E[x^2] - E[x]^2 clipped at 0 (Flax's
+    H, W) in float32 (float64 input stays float64, as in Flax), as E[x^2] -
+    E[x]^2 clipped at 0 (Flax's
     ``force_float32_reductions`` and ``use_fast_variance``), all-reduced over
     the ranks when a process group of more than one rank is up; normalizes
     with them in float32 and rounds to the input's dtype; and moves the
@@ -120,14 +121,14 @@ class BatchNorm(nn.BatchNorm2d):
     ``num_batches_tracked`` is kept but not counted. In eval mode it is
     ``F.batch_norm`` on the running statistics."""
 
-    def __init__(self, channels: int):
-        super().__init__(channels, eps=1e-3, momentum=0.01)
+    def __init__(self, channels: int, eps: float = 1e-3):
+        super().__init__(channels, eps=eps, momentum=0.01)
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as Flax
         moments = torch.cat([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
         world = mesh.world_size()
         if world > 1:

@@ -8,8 +8,9 @@ and split prediction confidences by argmax against the target id;
 features, a tensor on the frontend's device, and returns (B, C) softmax
 rows (a tensor or an array): ``FinetuneResult.predict_fn()`` is one.
 
-Only the device backend is ported: the JAX package's ``backend="native"``
-(its multithreaded C++ host frontend) is not, and raises.
+``featurize_files(backend="native")`` featurizes on the host instead, with
+the multithreaded C++ frontend (``native/host_frontend.py``), bit-identical
+to the device backend and with no device round trip.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.micro_exact import FrontendConfig
 from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
 from ..utils.wav import read_wav
 
@@ -46,10 +48,22 @@ def featurize_files(
     backend: str = "device",
     device="cuda",
 ) -> np.ndarray:
-    """wav paths -> (N, 49, 40) float32 features, batched on the device
-    (``frontend``'s, else ``device``)."""
+    """wav paths -> (N, 49, 40) float32 features.
+
+    backend="device": batched on the device (``frontend``'s, else
+    ``device``). backend="native": the multithreaded C++ host frontend
+    (``frontend``'s configuration, else the default one; ``device`` is not
+    used), bit-identical to the device backend."""
     if backend == "native":
-        raise NotImplementedError("the native host frontend is not ported: use backend='device'")
+        from ..native.host_frontend import NativeMicroFrontend
+
+        native = NativeMicroFrontend(frontend.config if frontend else FrontendConfig())
+        files = list(files)
+        out = [
+            native.features(np.stack([read_wav(f, desired_samples=desired_samples)[0] for f in files[i : i + batch_size]]))
+            for i in range(0, len(files), batch_size)
+        ]
+        return np.concatenate(out, axis=0) if out else np.zeros((0, 49, 40), np.float32)
     if backend != "device":
         raise ValueError(f"unknown backend {backend!r}")
     return _featurize(list(files), frontend, desired_samples, batch_size, device).cpu().numpy()

@@ -19,7 +19,7 @@ import torch
 from multilingual_kws_tpu_torch.analysis import batch_jobs, distance_filtering, model_analysis, per_speaker, sweeps
 from multilingual_kws_tpu_torch.api import cli
 from multilingual_kws_tpu_torch.data import dataset
-from multilingual_kws_tpu_torch.models import export_tf, import_tf, kws_model
+from multilingual_kws_tpu_torch.models import dscnn, export_tf, import_tf, kws_model, wav2vec2_embed
 from multilingual_kws_tpu_torch.ops import micro_torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
@@ -116,6 +116,8 @@ ENTRY_POINTS = {
     "run_job": lambda: batch_jobs.run_job(_JOB, [], None, None),
     "BatchRunner": lambda: batch_jobs.BatchRunner("jobs.pkl", [], None, None),
     "per_speaker_eval": lambda: per_speaker.per_speaker_eval("x", {}, [], None),
+    "DSCNN": lambda: dscnn.DSCNN(3),
+    "Wav2Vec2Embedder": lambda: wav2vec2_embed.Wav2Vec2Embedder(model=object(), extractor=object()),
 }
 
 
@@ -156,3 +158,15 @@ def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("entry", [dscnn.DSCNN, wav2vec2_embed.Wav2Vec2Embedder], ids=lambda e: e.__name__)
+def test_new_model_entry_points_default_to_the_card(entry):
+    import inspect
+
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_dscnn_runs_on_the_cpu_without_a_card(no_card):
+    probs = dscnn.DSCNN(3, filters=8, num_blocks=1, device="cpu").eval()(torch.zeros(2, 49, 40, 1))
+    assert tuple(probs.shape) == (2, 3)
