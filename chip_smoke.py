@@ -52,11 +52,20 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       same step on the CPU (loss rtol 1e-5; gradients rtol 1e-4, atol 1e-4
       of each tensor's largest, the CPU tests' tolerance); the batch-eval
       helpers and the streaming engine on the fine-tuned ``predict_fn``;
-      the streaming and resident input pipelines give equal specs. It
-      times the fine-tune step (median and best of five epochs) and its
-      parts, the transform's device time, one profiled epoch's device busy
-      time and idle share, and the two kernels at batches of 64 and 2048
-      clips;
+      the streaming and resident input pipelines give equal specs. Each
+      resident epoch is a CUDA graph (``make_finetune_epoch_scan``): it
+      checks the replays, holds both calls ``==`` the same calls on the
+      streaming pipeline, which runs a step at a time (every step's loss and
+      accuracy, the model, the optimizers' state, the generators), then
+      runs the graphed epoch beside the eager step loop in turns (five
+      timed epochs after a warm one, on the same draws) and holds them
+      ``==`` too, with the last replayed step's augment and frontend outputs
+      ``==`` the eager wrappers'; one profiled graphed epoch must show one
+      cudaGraphLaunch a step and every augment and frontend kernel launched
+      by one. It times both loops' step (median and best of five epochs),
+      the capture, the step's parts, the transform's device time, one
+      profiled epoch of each (device busy time and idle share), and the two
+      kernels at batches of 64 and 2048 clips;
   (f) the fast frontend mode (``MicroFrontendTorch(mode="fast")``): holds
       ``noise_scan_f32`` against its plain version (==) at the stream's
       shape, at 64 and 2048 clips and on the edge cases, drives the
@@ -98,7 +107,7 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
   (i) embedding pretraining and bf16: builds a seeded 761-label corpus (760
       tone-sequence words of PT_CLIPS clips, and _silence_), joins an NCCL
       process group of one rank (``parallel/mesh.py``: the step runs under
-      DistributedDataParallel), and runs ``pretrain()`` with the full-width
+      its gradient all-reduce), and runs ``pretrain()`` with the full-width
       B0, 761 outputs, batch 64, PT_EPOCHS epochs of PT_STEPS steps, BN
       calibration and best-val checkpoints, at float32 and at bfloat16. It
       checks: losses finite and falling, every parameter and BN statistic
@@ -109,9 +118,16 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       gradients rtol 1e-4, atol 1e-4 of each tensor's largest) from a state
       that is the same in every run (``pretrain_gate``: the seeded init, BN
       calibrated on the CPU; each tensor's error is printed); both kernels
-      == plain at the pretraining batch. It times the step (median and best
-      of five epochs) and one profiled epoch's device busy time and idle
-      share. Then the CLI: ``pretrain`` (one short epoch), ``train
+      == plain at the pretraining batch. Each resident epoch is a CUDA
+      graph (``build_fused_resident_epoch``, NCCL's collectives inside): it
+      holds ``pretrain()`` ``==`` ``pretrain(scan_epoch=False)`` (history,
+      model, generator, launches), and the graphed epoch ``==`` the eager
+      step loop over two epochs (every step's metrics, the model, Adam's
+      state, both generators), both under deterministic cuDNN (at float32
+      its default weight-gradient algorithms make two eager runs differ);
+      it times both loops' step in turns (median and best of five epochs)
+      and the capture, and profiles one epoch of each (device busy time,
+      idle share; one cudaGraphLaunch a step). Then the CLI: ``pretrain`` (one short epoch), ``train
       --embedding`` from its checkpoint and ``inference`` at ``--compute-dtype
       bfloat16``; the bf16 gate: ``bf16_gate_model`` (a full-width B0 with
       BN calibrated to its data) at bfloat16 beside float32, its softmax
@@ -181,6 +197,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -227,6 +244,7 @@ FFT_OPS_PER_ROW = 17920 + 5120
 PEAK_BF16_FLOPS = 989e12  # tensor cores, dense (NVIDIA data sheet)
 GRID_STEP = 10.0 / 256.0  # one step of the features' uint16 grid
 FT_BATCH = 64  # the fine-tune's batch (the JAX package's default)
+GRAPH_EPOCHS = 5  # phases e, i: timed epochs of the graphed and the eager loop, in turns, after one warm epoch
 FT_SHOTS = 5
 LONG_CLIPS = 64  # 10 s clips through features_from_int16: the prefix on a clip batch (B6)
 THRESHOLDS_H = [0.9, 0.8, 0.7, 0.6, 0.5, 0.4]  # phase h: the CLI's default first
@@ -454,7 +472,7 @@ def profile_run(torch, runs, out_dir: Path):
     spread), then one run under torch.profiler: device busy time (the union
     of device activity), its split by kind, and the idle share of the wall
     time. Device activity is the trace's kernels, copies and sets (not the
-    annotations of CPU ranges that DDP and the optimizer place on the
+    annotations of CPU ranges that the optimizer places on the
     device's timeline). Writes each chrome trace to out_dir."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -535,6 +553,139 @@ def suffix_grid(torch, fe, dev) -> int:
     return n_cmp
 
 
+class _LastBatch:
+    """A frontend that keeps a copy of the int16 batch it featurizes (the
+    augment kernel's output) and of its features (the frontend kernel's)
+    from its last call. In a CUDA graph the copies are nodes of the graph,
+    so after a replay they hold that replay's batch."""
+
+    def __init__(self, fe):
+        self.fe, self.last = fe, None
+
+    def features_from_int16(self, audio):
+        feats = self.fe.features_from_int16(audio)
+        self.last = (audio.clone(), feats.clone())
+        return feats
+
+
+def tensor_diffs(torch, a, b, prefix=""):
+    """{name: max |a - b|} over the tensors of two nested dicts or lists
+    (state dicts, optimizer states) where they are not ==; a tensor missing
+    on one side, or of another shape, counts as a difference."""
+    out = {}
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)) or a.shape != b.shape:
+            return {prefix: "missing or another shape"}
+        if not torch.equal(a.cpu(), b.cpu()):
+            out[prefix] = float((a.cpu().double() - b.cpu().double()).abs().max())
+        return out
+    if isinstance(a, dict):
+        for k in set(a) | set(b):
+            out.update(tensor_diffs(torch, a.get(k), b.get(k), f"{prefix}.{k}"))
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            out.update(tensor_diffs(torch, x, y, f"{prefix}.{i}"))
+    elif a != b:
+        out[prefix] = f"{a} != {b}"
+    return out
+
+
+def epochs_in_turns(torch, sides, inputs, before_last=None):
+    """Run each side's epoch (name -> epoch(idx, lbl, sil) -> (losses, accs))
+    on the same inputs, in turns, one epoch of each per entry of ``inputs``;
+    ``before_last()`` runs before the last turn. Returns per side the ms a
+    step of each epoch (wall to a synchronize) and every epoch's losses and
+    accuracies on the host."""
+    out = {name: {"ms": [], "metrics": []} for name in sides}
+    for k, batch in enumerate(inputs):
+        if k == len(inputs) - 1 and before_last:
+            before_last()
+        for name, run in sides.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, accs = run(*batch)
+            torch.cuda.synchronize()
+            out[name]["ms"].append((time.perf_counter() - t0) / batch[0].shape[0] * 1e3)
+            out[name]["metrics"].append((losses.cpu(), accs.cpu()))
+    return out
+
+
+def graph_trace(torch, run, steps: int):
+    """One graphed epoch (``run()``, all its steps replays) under
+    torch.profiler, host and device: its wall, the device's busy time (ms)
+    and idle share, the host's cudaGraphLaunch calls, and for the augment and
+    frontend kernels of the epoch the host call that launched each (by
+    correlation id). A trace that holds fewer than steps - 2 frontend
+    kernels is taken again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        device = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if sum("clip_features_kernel" in e["name"] for e in device) >= steps - 2:
+            break
+        print(f"graph_trace: too few frontend kernel events; trace {attempt + 2}")
+    else:
+        fail("graph_trace: five traces in a row hold too few of the epoch's kernels")
+    host = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    by_correlation = {e.get("args", {}).get("correlation"): e["name"] for e in host}
+    launched_by = {}
+    for kernel in ("augment_quantize_kernel", "clip_features_kernel"):
+        names = [by_correlation.get(e["args"].get("correlation"), "unknown")
+                 for e in device if e["cat"] == "kernel" and kernel in e["name"]]
+        launched_by[kernel] = {n: names.count(n) for n in sorted(set(names))}
+    busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in device) / 1e3
+    return {"wall_s": wall, "busy_ms": busy, "idle": 1 - busy / 1e3 / wall,
+            "graph_launches": sum("GraphLaunch" in e["name"] for e in host),
+            "host_kernel_launches": sum("LaunchKernel" in e["name"] for e in host), "launched_by": launched_by}
+
+
+def check_graph_trace(tr, steps: int, what: str):
+    """A replayed epoch: one cudaGraphLaunch a step, and every augment and
+    frontend kernel launched by one of them (none by the host)."""
+    check(tr["graph_launches"] == steps, f"{what}: {tr['graph_launches']} cudaGraphLaunch calls for {steps} steps")
+    for kernel, by in tr["launched_by"].items():
+        check(by and all("GraphLaunch" in n for n in by), f"{what}: {kernel} launched by {by}")
+
+
+def pair_diffs(torch, turns, graphed, eager):
+    """Where a graphed and an eager side of ``epochs_in_turns`` differ:
+    each epoch's losses and accuracies, then each side's (model, optimizer,
+    generators) after the run. Empty when they hold the same bits."""
+    out = {}
+    for k, ((lg, ag), (le, ae)) in enumerate(zip(turns["graphed"]["metrics"], turns["eager"]["metrics"])):
+        if not (torch.equal(lg, le) and torch.equal(ag, ae)):
+            out[f"epoch {k} metrics"] = float(torch.maximum((lg - le).abs().max(), (ag - ae).abs().max()))
+    (mg, og, gg), (me, oe, ge) = graphed, eager
+    out.update({f"model{k}": v for k, v in tensor_diffs(torch, mg.state_dict(), me.state_dict()).items()})
+    out.update({f"optimizer{k}": v for k, v in tensor_diffs(
+        torch, og.state_dict()["state"], oe.state_dict()["state"]).items()})
+    out.update({f"generator {i}": "differs" for i, (x, y) in enumerate(zip(gg, ge))
+                if not torch.equal(x.get_state(), y.get_state())})
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to deterministic algorithms inside the block."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     """Phase e: the fine-tune slice on the card (see the module docstring).
     Returns one resident fine-tune epoch as a function (for ``--profile``),
@@ -556,8 +707,10 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
         evaluate_files_multiclass,
         evaluate_files_single_target,
     )
+    from multilingual_kws_tpu_torch.ops.augment import SpecAugParams
     from multilingual_kws_tpu_torch.train.finetune import _head_and_top, _head_only, transfer_learn
-    from multilingual_kws_tpu_torch.train.steps import make_finetune_step
+    from multilingual_kws_tpu_torch.train.graphs import WARMUP_STEPS
+    from multilingual_kws_tpu_torch.train.steps import make_finetune_epoch_scan, make_finetune_step
     from multilingual_kws_tpu_torch.utils.wav import write_wav
 
     dev = torch.device("cuda")
@@ -682,7 +835,7 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
         device="cuda", verbose=1,
     )
     model = lecun_init_(make_transfer_model(device="cpu"), seed=0).to(dev)
-    init = {k: t.clone() for k, t in model.named_parameters()}
+    init = {k: t.detach().clone() for k, t in model.named_parameters()}
     cuda_clip.clip_features.launches = 0
     cuda_augment.augment_quantize.launches = 0
     t0 = time.perf_counter()
@@ -725,6 +878,37 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     check(launches["augment_quantize"] == n_train,
           f"augment_quantize launched {launches['augment_quantize']} times for {n_train} train batches")
     check(launches["clip_features"] >= n_train, f"clip_features launched {launches['clip_features']} times")
+    # every resident epoch ran as a CUDA graph: WARMUP_STEPS eager steps in
+    # each phase's first epoch, then replays
+    graphs_used = [h["graph"] for h in r1.history + r2.history]
+    replays = [g["replays"] for g in graphs_used]
+    check(replays == [4 * FT_BATCH - WARMUP_STEPS, FT_BATCH - WARMUP_STEPS, FT_BATCH - WARMUP_STEPS],
+          f"graph replays {replays}")
+
+    # graphed == eager, bitwise: the same two calls on the streaming
+    # pipeline, which runs a step at a time, from the same start and seeds:
+    # every step's loss and accuracy, the model after each call, each
+    # call's last optimizer state and its dataset's generator
+    model_e = lecun_init_(make_transfer_model(device="cpu"), seed=0).to(dev)
+    eager = dict(common, verbose=0, resident=False)
+    e1 = transfer_learn(**eager, seed=0, model=model_e)
+    after1_e = {k: t.clone() for k, t in model_e.state_dict().items()}
+    e2 = transfer_learn(**eager, num_epochs=1, seed=1, model=model_e, base_params=after1_e,
+                        backprop_into_embedding=True, embedding_lr=1e-4)
+    twin = {}
+    for name, g, e in (("call 1", r1, e1), ("call 2", r2, e2)):
+        for i, (hg, he) in enumerate(zip(g.history, e.history)):
+            for k in ("step_loss", "step_accuracy"):
+                if hg[k] != he[k]:
+                    twin[f"{name} phase {i + 1} {k}"] = float(np.abs(np.subtract(hg[k], he[k])).max())
+        twin.update({f"{name} optimizer{k}": v for k, v in tensor_diffs(
+            torch, g.optimizer.state_dict()["state"], e.optimizer.state_dict()["state"]).items()})
+        if not torch.equal(g.dataset.gen.get_state(), e.dataset.gen.get_state()):
+            twin[f"{name} generator"] = "differs"
+    twin.update({f"model after call 1{k}": v for k, v in tensor_diffs(torch, after1, after1_e).items()})
+    twin.update({f"model{k}": v for k, v in tensor_diffs(torch, model.state_dict(), model_e.state_dict()).items()})
+    check(not twin, f"graphed transfer_learn != eager: {twin}")
+    del model_e, e1, e2
 
     # one step on the card against the same step on the CPU
     specs, labels = next(r2.dataset.train_batches(corpus["train"], FT_BATCH, 1))
@@ -785,10 +969,6 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     def transform(i):
         return ds._train_device(bank_d["bank"], idx[i], sil[i])
 
-    def epoch():
-        for i in range(FT_BATCH):
-            step(transform(i), lbl[i])
-
     x0 = transform(0)
     t_transform = cuda_ms(torch, lambda: transform(0), 20)
     # the transform's device time per batch (the union of its device
@@ -803,18 +983,49 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     with torch.no_grad():
         t_forward = cuda_ms(torch, lambda: model(x0), 20)
     t_step = cuda_ms(torch, lambda: step(x0, lbl[0]), 20)
-    epoch()
-    torch.cuda.synchronize()
-    ms_steps = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        epoch()
-        torch.cuda.synchronize()
-        ms_steps.append((time.perf_counter() - t0) / FT_BATCH * 1e3)
+    # the step time: the graphed epoch (make_finetune_epoch_scan, as
+    # transfer_learn runs it; the fine-tuned model) beside the eager step
+    # loop (a copy of it), in turns, each side with its own dataset of one
+    # seed, on the same bank rows: the same steps on the same draws. Then
+    # the two are held ==: every step's loss and accuracy, the model, Adam's
+    # state, the generator, and the last step's augment and frontend outputs
+    # (copied inside the graph; from the eager wrappers' launches)
+    def ft_side():
+        d = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], corpus["bg_dir"], corpus["unknown"],
+                         unknown_percentage=50.0, spec_aug_params=SpecAugParams(percentage=80), seed=7, device="cuda")
+        return d, d.build_resident_bank(corpus["train"])
+
+    (ds_g, bank_g), (ds_e, bank_e) = ft_side(), ft_side()
+    model_eager = copy.deepcopy(model)
+    rec_g, rec_e = _LastBatch(ds_g.frontend), _LastBatch(ds_e.frontend)
+    ds_g.frontend = rec_g
+    graphed = make_finetune_epoch_scan(model, 1e-3, _head_only, ds_g, bank_g["bank"])
+    step_e, _, _ = make_finetune_step(model_eager, 1e-3, _head_only)
+
+    def eager_epoch(idx, lbl, sil):
+        ms = [step_e(ds_e._train_device(bank_e["bank"], idx[i], sil[i]), lbl[i]) for i in range(idx.shape[0])]
+        return torch.stack([m["loss"] for m in ms]), torch.stack([m["accuracy"] for m in ms])
+
+    inputs = [ds_g._put_batch(tuple(np.stack(a) for a in zip(*ds_g.host_train_indices(
+        corpus["train"], FT_BATCH, FT_BATCH, bank_g)))) for _ in range(GRAPH_EPOCHS + 1)]
+    turns = epochs_in_turns(torch, {"graphed": graphed, "eager": eager_epoch}, inputs,
+                            before_last=lambda: setattr(ds_e, "frontend", rec_e))
+    pair = pair_diffs(torch, turns, (model, graphed.optimizer, [ds_g.gen]),
+                      (model_eager, step_e.optimizer, [ds_e.gen]))
+    check(not pair, f"graphed fine-tune epochs != eager: {pair}")
+    (quant_g, feats_g), (quant_e, feats_e) = rec_g.last, rec_e.last
+    check(torch.equal(quant_g, quant_e) and torch.equal(feats_g, feats_e),
+          "the augment and frontend outputs of a replayed step != the eager wrappers' on the same draws")
+    check(graphed.replays == (GRAPH_EPOCHS + 1) * FT_BATCH - WARMUP_STEPS, f"{graphed.replays} replays")
+    ms_graph, ms_steps = turns["graphed"]["ms"][1:], turns["eager"]["ms"][1:]
     ms_step = float(np.median(ms_steps))
-    # one more epoch under the profiler: the steps' device busy time and
-    # the idle share of their wall
-    ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", FT_BATCH - 2))
+    # one more epoch of each under the profiler: the device busy time and
+    # the idle share of the wall; the graphed one launches its steps as
+    # graphs
+    tr_ft = graph_trace(torch, lambda: graphed(*inputs[-1]), FT_BATCH)
+    check_graph_trace(tr_ft, FT_BATCH, "fine-tune")
+    ev, wall_epoch = device_trace(torch, lambda: eager_epoch(*inputs[-1]), 1, warmup=0,
+                                  expect=("clip_features_kernel", FT_BATCH - 2))
     busy_epoch = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / 1e3
     idle_epoch = 1 - busy_epoch / 1e3 / wall_epoch
 
@@ -851,14 +1062,28 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
         f"epoch losses {ep_loss}; launches {launches}; card vs CPU step: loss {lg:.7f} / {lc:.7f}, "
         f"max gradient error {step_err:.2e} of each tensor's largest"
     )
+    ms_g = float(np.median(ms_graph))
     print(
-        f"phase e: fine-tune step at batch {FT_BATCH}: {ms_step:.3f} ms (median of 5 epochs, best "
-        f"{min(ms_steps):.3f}: {[round(m, 3) for m in ms_steps]}; {1e3 / ms_step:.1f} steps/s, "
-        f"{FT_BATCH * 1e3 / ms_step:.0f} clips/s); by CUDA events: transform (augment, frontend, "
-        f"SpecAugment) {t_transform:.3f} ms, model forward {t_forward:.3f} ms, step (forward, head "
-        f"backward, Adam) {t_step:.3f} ms; transform device time {dev_transform:.4f} ms per batch "
-        f"(device ms of its kernels {dev_in_transform}); one profiled epoch of {FT_BATCH} steps: wall "
-        f"{wall_epoch:.4f} s, device busy {busy_epoch:.3f} ms, idle share {idle_epoch:.4f}"
+        f"phase e: fine-tune step at batch {FT_BATCH}, epochs in turns (median of {GRAPH_EPOCHS}, best, all): "
+        f"graphed {ms_g:.3f} ms (best {min(ms_graph):.3f}: {[round(m, 3) for m in ms_graph]}; "
+        f"{FT_BATCH * 1e3 / ms_g:.0f} clips/s), eager {ms_step:.3f} ms (best {min(ms_steps):.3f}: "
+        f"{[round(m, 3) for m in ms_steps]}; {FT_BATCH * 1e3 / ms_step:.0f} clips/s), eager / graphed "
+        f"{ms_step / ms_g:.2f}; the first graphed epoch {turns['graphed']['ms'][0]:.3f} ms a step "
+        f"({WARMUP_STEPS} eager step, then the capture, {graphed.capture_s:.4f} s); by CUDA events: transform "
+        f"(augment, frontend, SpecAugment) {t_transform:.3f} ms, model forward {t_forward:.3f} ms, step (forward, "
+        f"head backward, Adam) {t_step:.3f} ms; transform device time {dev_transform:.4f} ms per batch (device ms "
+        f"of its kernels {dev_in_transform}); one profiled graphed epoch of {FT_BATCH} steps: wall "
+        f"{tr_ft['wall_s']:.4f} s, device busy {tr_ft['busy_ms']:.3f} ms, idle share {tr_ft['idle']:.4f}, "
+        f"cudaGraphLaunch {tr_ft['graph_launches']}, host kernel launches {tr_ft['host_kernel_launches']}, the "
+        f"kernels launched by {json.dumps(tr_ft['launched_by'])}; one profiled eager epoch: wall {wall_epoch:.4f} s, "
+        f"device busy {busy_epoch:.3f} ms, idle share {idle_epoch:.4f}"
+    )
+    print(
+        f"phase e: graphed == eager, bitwise: transfer_learn's two calls (phases 1 and 2; replays {replays}, "
+        f"captures {[round(g['capture_s'], 4) for g in graphs_used]} s) against the same calls on the streaming "
+        f"pipeline, a step at a time (every step's loss and accuracy, the model after each call, the optimizers' "
+        f"state, the generators); {GRAPH_EPOCHS + 1} epochs in turns ({graphed.replays} replays); the last "
+        f"replayed step's augment_quantize and clip_features outputs == the eager wrappers' on the same draws"
     )
     # B6 on the 10 s clips whose launches were counted above
     k_long, grid_long, _ = kernel_ms(torch, lambda: cuda_fft.stream_prefix(long_audio, fe), "stream_prefix_kernel")
@@ -873,7 +1098,7 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
               for k in ("clip", "aug"))
           + f"; stream_prefix on {LONG_CLIPS} 10 s clips ({nf_long} frames each) {k_long:.5f} [plain {p_long:.3f}; "
           f"bound {b_long[0]:.5f} ({b_long[1]}); grid {grid_long}]")
-    return epoch, after, model, corpus, [
+    return lambda: graphed(*inputs[-1]), after, model, corpus, [
         {
             "name": "clip_features", "route": "cuda",
             "source": f"{PKG}/csrc/frontend.cu",
@@ -1625,6 +1850,46 @@ def pretrain_gate(torch, specs, labels, group):
     return {"errors": errors, "loss": (lg, lc), "state": state_hash, "batch": batch_hash}
 
 
+def pretrain_sides(torch, model, corpus, group):
+    """Phase i's graphed and eager pretraining loops on copies of ``model``:
+    each with its own dataset (pretrain()'s, seed 5), resident bank, Adam
+    and drop-connect generator (seed 1), so that the two take the same steps
+    on the same draws. The graphed side is ``build_fused_resident_epoch``
+    as pretrain() runs it; the eager side is the per-step loop of
+    ``scan_epoch=False``. Returns {side: (epoch, (model, optimizer,
+    generators))} and the graphed side's dataset and bank."""
+    import copy
+
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+    from multilingual_kws_tpu_torch.ops.augment import SpecAugParams
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+    from multilingual_kws_tpu_torch.train.pretrain import build_fused_resident_epoch
+    from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
+
+    sides = {}
+    for name in ("graphed", "eager"):
+        ds = AudioDataset(standard_microspeech_model_settings(PT_WORDS + 1), corpus["words"], corpus["bg_dir"], [],
+                          silence_percentage=1.0, unknown_percentage=0.0, spec_aug_params=SpecAugParams(percentage=80),
+                          seed=5, device="cuda")
+        bank = ds.build_resident_bank(corpus["train"])
+        m = copy.deepcopy(model)
+        opt = flat_adam(m.parameters(), 1e-3)
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(1)
+        if name == "graphed":
+            run = build_fused_resident_epoch(m, opt, group, ds, bank["bank"], drop)
+            out = (ds, bank)
+        else:
+            step, _ = make_pretrain_step(m, opt, group)
+
+            def run(idx, lbl, sil, step=step, ds=ds, bank=bank, drop=drop):
+                ms = [step(ds._train_device(bank["bank"], idx[i], sil[i]), lbl[i], drop) for i in range(idx.shape[0])]
+                return torch.stack([x["loss"] for x in ms]), torch.stack([x["accuracy"] for x in ms])
+
+        sides[name] = (run, (m, opt, [ds.gen, drop]))
+    return sides, out
+
+
 def free_port() -> int:
     import socket
 
@@ -1635,7 +1900,7 @@ def free_port() -> int:
 
 def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli_paths, work: Path):
     """Phase i: embedding pretraining on the card under an NCCL process
-    group of one rank (the data-parallel path: DistributedDataParallel,
+    group of one rank (the data-parallel path: the gradient all-reduce,
     parallel/mesh.py), at float32 and bfloat16; the CLI's pretrain -> train
     -> inference at bfloat16; the bf16 stream beside the float32 one; a
     bf16 fine-tune beside phase e's. Returns the float32 pretraining epoch
@@ -1654,8 +1919,8 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
     from multilingual_kws_tpu_torch.stream.tprfpr import get_groundtruth
     from multilingual_kws_tpu_torch.train import checkpoints as ckpt
     from multilingual_kws_tpu_torch.train.finetune import transfer_learn
+    from multilingual_kws_tpu_torch.train.graphs import WARMUP_STEPS
     from multilingual_kws_tpu_torch.train.pretrain import PretrainConfig, pretrain
-    from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
     from multilingual_kws_tpu_torch.utils.wav import write_wav
 
     dev = torch.device("cuda")
@@ -1677,8 +1942,6 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
           "no process group")
     check(dist.get_backend() == "nccl" and mesh.world_size() == 1, "the process group is not NCCL of one rank")
     group = mesh.default_group()
-    drop = torch.Generator(device=dev)
-    drop.manual_seed(1)
 
     # 1. pretrain() at float32, then bfloat16
     runs = {}
@@ -1713,30 +1976,59 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
         check(meta["kind"] == "embedding" and meta["num_labels"] == PT_WORDS + 1, f"checkpoint metadata {meta}")
         size = (work / f"emb_{dtype}" / ckpt.STATE_FILE).stat().st_size
 
-        # the step time on the resident bank, five epochs of PT_STEPS steps
-        step, _ = make_pretrain_step(model, flat_adam(model.parameters(), 1e-3), group)
-        bank = ds.build_resident_bank(corpus["train"])
-        draws = list(ds.host_train_indices(corpus["train"], PT_BATCH, PT_STEPS, bank, labels=train_labels,
-                                           single_target=False))
-        idx, lbl, sil = ds._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+        # graphed == eager, bitwise, for the user's call: pretrain() with
+        # scan_epoch True and False from the same init and seeds (the
+        # history, every tensor of the model, the dataset's generator, the
+        # launches), with cuDNN restricted to deterministic algorithms: at
+        # float32 its default weight-gradient algorithms sum in an order
+        # that changes from run to run, so two eager runs differ too
+        twin_runs = {}
+        with deterministic_cudnn(torch):
+            for scan in (True, False):
+                reset()
+                m0 = lecun_init_(make_embedding_model(PT_WORDS + 1, device="cpu", compute_dtype=dtype), seed=0)
+                m, h, d = pretrain(corpus["train"], corpus["val"], corpus["words"], corpus["bg_dir"], model=m0,
+                                   config=dataclasses.replace(config, checkpoint_dir=None, scan_epoch=scan), verbose=0)
+                twin_runs[scan] = (m.state_dict(), h, d.gen.get_state(),
+                                   {k: counters[k].launches for k in ("augment_quantize", "clip_features")})
+        (sg, hg, gg, lg), (se, he, ge, le) = twin_runs[True], twin_runs[False]
+        twin = {f"model{k}": v for k, v in tensor_diffs(torch, sg, se).items()}
+        if hg != he:
+            twin["history"] = f"{hg} != {he}"
+        if not torch.equal(gg, ge):
+            twin["generator"] = "differs"
+        check(not twin and lg == le == launches, f"{dtype}: pretrain(scan_epoch=True) != False: {twin}, launches {lg} {le}")
 
-        def epoch(step=step, ds=ds, bank=bank, idx=idx, lbl=lbl, sil=sil):
-            for i in range(PT_STEPS):
-                step(ds._train_device(bank["bank"], idx[i], sil[i]), lbl[i], drop)
-
-        epoch()
-        sync()
-        ms = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            epoch()
-            sync()
-            ms.append((time.perf_counter() - t0) / PT_STEPS * 1e3)
-        ev, wall_epoch = device_trace(torch, epoch, 1, warmup=0, expect=("clip_features_kernel", PT_STEPS - 2))
+        # the step time: the graphed epoch beside the eager step loop, in
+        # turns, on copies of the pretrained model (pretrain_sides), then one
+        # profiled epoch of each; and the same two held == over two epochs
+        # (every step's loss and accuracy, the model, Adam's state, the
+        # dataset's and drop-connect's generators) under deterministic cuDNN
+        sides, (ds_g, bank_g) = pretrain_sides(torch, model, corpus, group)
+        inputs = [ds_g._put_batch(tuple(np.stack(a) for a in zip(*ds_g.host_train_indices(
+            corpus["train"], PT_BATCH, PT_STEPS, bank_g, labels=train_labels, single_target=False))))
+            for _ in range(GRAPH_EPOCHS + 1)]
+        graphed = sides["graphed"][0]
+        turns = epochs_in_turns(torch, {name: run for name, (run, _) in sides.items()}, inputs)
+        check(graphed.replays == (GRAPH_EPOCHS + 1) * PT_STEPS - WARMUP_STEPS, f"{dtype}: {graphed.replays} replays")
+        tr = graph_trace(torch, lambda graphed=graphed, b=inputs[-1]: graphed(*b), PT_STEPS)
+        check_graph_trace(tr, PT_STEPS, f"pretraining at {dtype}")
+        eager_run = sides["eager"][0]
+        ev, wall_epoch = device_trace(torch, lambda: eager_run(*inputs[-1]), 1, warmup=0,
+                                      expect=("clip_features_kernel", PT_STEPS - 2))
         busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in ev) / 1e3
-        runs[dtype] = {"model": model, "ds": ds, "epoch": epoch, "bank": bank, "hist": hist, "wall": wall,
-                       "launches": launches, "size": size, "ms": ms, "busy": busy, "idle": 1 - busy / 1e3 / wall_epoch,
-                       "wall_epoch": wall_epoch}
+        with deterministic_cudnn(torch):
+            det_sides, _ = pretrain_sides(torch, model, corpus, group)
+            det_turns = epochs_in_turns(torch, {name: run for name, (run, _) in det_sides.items()}, inputs[:2])
+            pair = pair_diffs(torch, det_turns, det_sides["graphed"][1], det_sides["eager"][1])
+        check(not pair, f"{dtype}: graphed pretraining epochs != eager: {pair}")
+        del det_sides, twin_runs
+        runs[dtype] = {"model": model, "ds": ds, "epoch": lambda graphed=graphed, b=inputs[-1]: graphed(*b),
+                       "bank": ds.build_resident_bank(corpus["train"]), "hist": hist, "wall": wall,
+                       "launches": launches, "size": size, "ms": turns["eager"]["ms"][1:],
+                       "ms_graph": turns["graphed"]["ms"][1:], "first_graph": turns["graphed"]["ms"][0],
+                       "capture_s": graphed.capture_s, "replays": graphed.replays, "trace": tr, "busy": busy,
+                       "idle": 1 - busy / 1e3 / wall_epoch, "wall_epoch": wall_epoch}
 
     # 2. one step on the card against the same step on the CPU: the same
     # global batch, the same drop-connect masks (one CPU generator's draws),
@@ -1914,17 +2206,16 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
     ft_loss = ft16.history[0]["loss"]
     check(ft_loss[-1] < ft_loss[0], f"bf16 fine-tune epoch losses did not fall: {ft_loss}")
     from multilingual_kws_tpu_torch.train.finetune import _head_only
-    from multilingual_kws_tpu_torch.train.steps import make_finetune_step
+    from multilingual_kws_tpu_torch.train.steps import make_finetune_epoch_scan
 
     fds = ft16.dataset
     fbank = fds.build_resident_bank(ft_corpus["train"])
     fdraws = list(fds.host_train_indices(ft_corpus["train"], FT_BATCH, FT_BATCH, fbank))
     fidx, flbl, fsil = fds._put_batch(tuple(np.stack(a) for a in zip(*fdraws)))
-    fstep, _, _ = make_finetune_step(ft16.model, 1e-3, _head_only)
+    fgraph = make_finetune_epoch_scan(ft16.model, 1e-3, _head_only, fds, fbank["bank"])
 
     def ft16_epoch():
-        for i in range(FT_BATCH):
-            fstep(fds._train_device(fbank["bank"], fidx[i], fsil[i]), flbl[i])
+        fgraph(fidx, flbl, fsil)
 
     ft16_epoch()
     ft_ms = {"float32": [], "bfloat16": []}
@@ -1937,13 +2228,23 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
             ft_ms[dtype].append((time.perf_counter() - t0) / FT_BATCH * 1e3)
 
     for dtype, r in runs.items():
+        tr = r["trace"]
         print(f"phase i: pretrain() at {dtype}: full-width B0, {PT_WORDS + 1} outputs, batch {PT_BATCH}, {PT_EPOCHS} epochs x "
-              f"{PT_STEPS} steps, BN calibration 2 batches, under nccl (world size 1, DistributedDataParallel): "
+              f"{PT_STEPS} steps, BN calibration 2 batches, under nccl (world size 1), each epoch a CUDA graph: "
               f"{r['wall']:.2f} s; epoch losses {r['hist']['loss']}, val accuracy {r['hist']['val_accuracy']}; "
-              f"launches {r['launches']}; checkpoint {r['size']} bytes; step {float(np.median(r['ms'])):.3f} ms "
-              f"(median of 5 epochs of {PT_STEPS}, best {min(r['ms']):.3f}: {[round(m, 3) for m in r['ms']]}); "
-              f"one profiled epoch: wall {r['wall_epoch']:.4f} s, device busy {r['busy']:.3f} ms, idle share "
-              f"{r['idle']:.4f}")
+              f"launches {r['launches']}; checkpoint {r['size']} bytes; == pretrain(scan_epoch=False), bitwise, "
+              f"under deterministic cuDNN")
+        print(f"phase i: pretraining step at {dtype}, batch {PT_BATCH}, epochs of {PT_STEPS} in turns (median of "
+              f"{GRAPH_EPOCHS}, best, all): graphed {float(np.median(r['ms_graph'])):.3f} ms (best "
+              f"{min(r['ms_graph']):.3f}: {[round(m, 3) for m in r['ms_graph']]}), eager {float(np.median(r['ms'])):.3f} "
+              f"ms (best {min(r['ms']):.3f}: {[round(m, 3) for m in r['ms']]}), eager / graphed "
+              f"{float(np.median(r['ms'])) / float(np.median(r['ms_graph'])):.2f}; the first graphed epoch "
+              f"{r['first_graph']:.3f} ms a step (capture {r['capture_s']:.4f} s; {r['replays']} replays in all); "
+              f"one profiled graphed epoch: wall {tr['wall_s']:.4f} s, device busy {tr['busy_ms']:.3f} ms, idle share "
+              f"{tr['idle']:.4f}, cudaGraphLaunch {tr['graph_launches']}, host kernel launches "
+              f"{tr['host_kernel_launches']}, the kernels launched by {json.dumps(tr['launched_by'])}; one profiled "
+              f"eager epoch: wall {r['wall_epoch']:.4f} s, device busy {r['busy']:.3f} ms, idle share {r['idle']:.4f}; "
+              f"graphed == eager over 2 epochs, bitwise, under deterministic cuDNN")
     print(f"phase i: corpus of {n_clips} clips ({len(corpus['train'])} to train, {len(corpus['val'])} to validate; "
           f"{corpus_bytes} bytes) written in {t_corpus:.2f} s; card vs CPU step (the seeded init, BN calibrated on "
           f"the CPU; state {step_gate['state']}, batch {step_gate['batch']}): loss {step_gate['loss'][0]:.7f} / "
@@ -1967,7 +2268,7 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
         print(f"phase i: bf16 vs float32 on the stream, {name}'s model ({bound}; detections tp/fp/fn by "
               f"threshold): {json.dumps(r)}")
     print(f"phase i: transfer_learn at bfloat16 (JAX defaults, fresh B0): {ft_wall:.2f} s, epoch losses {ft_loss}; "
-          f"fine-tune step ms, in turns: " + "; ".join(
+          f"graphed fine-tune step ms, in turns: " + "; ".join(
               f"{dtype} {float(np.median(v)):.3f} (best {min(v):.3f}: {[round(x, 3) for x in v]})"
               for dtype, v in ft_ms.items()))
     return runs["float32"]["epoch"]

@@ -17,7 +17,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
+
+import torch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -70,6 +72,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "kws_error_string": [I],
     },
 }
+
+# every kernel wrapper, each with two counters: ``launches``, the launches
+# that ran (from the host, or as a CUDA graph's replay), and ``captured``,
+# the launches recorded into CUDA graphs (train/graphs.py adds each graph's
+# captured launches to ``launches`` once per replay)
+WRAPPERS: List[Callable] = []
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -135,3 +143,22 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     never run, and a later synchronize would not report them)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}: {lib.kws_error_string(err).decode()}")
+
+
+def counted(wrapper: Callable) -> Callable:
+    """Give a kernel wrapper its two launch counters, both 0, and list it in
+    ``WRAPPERS``."""
+    wrapper.launches = 0
+    wrapper.captured = 0
+    WRAPPERS.append(wrapper)
+    return wrapper
+
+
+def count(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``launches``, or, while
+    the current stream is being captured into a CUDA graph, in ``captured``
+    (a captured launch runs only when the graph replays)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1

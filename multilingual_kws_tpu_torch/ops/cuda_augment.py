@@ -145,8 +145,8 @@ def augment_quantize(
             torch.cuda.current_stream(fg_bank.device).cuda_stream,
         )
     _build.check(lib, err, "augment_quantize")
-    augment_quantize.launches += 1
+    _build.count(augment_quantize)
     return out
 
 
-augment_quantize.launches = 0
+_build.counted(augment_quantize)

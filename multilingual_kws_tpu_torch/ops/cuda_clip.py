@@ -96,8 +96,8 @@ def clip_features(audio: torch.Tensor, fe, scaled: bool = True) -> torch.Tensor:
             out.data_ptr(), int(scaled), torch.cuda.current_stream(audio.device).cuda_stream,
         )
     _build.check(lib, err, "clip_features")
-    clip_features.launches += 1
+    _build.count(clip_features)
     return out
 
 
-clip_features.launches = 0
+_build.counted(clip_features)

@@ -85,8 +85,8 @@ def noise_scan_f32(base: torch.Tensor, num_windows: int, stride: int, frames: in
             out.data_ptr(), torch.cuda.current_stream(base.device).cuda_stream,
         )
     _build.check(lib, err, "noise_scan_f32")
-    noise_scan_f32.launches += 1
+    _build.count(noise_scan_f32)
     return out
 
 
-noise_scan_f32.launches = 0
+_build.counted(noise_scan_f32)

@@ -99,11 +99,11 @@ def stream_prefix(audio: torch.Tensor, fe) -> torch.Tensor:
             out.data_ptr(), torch.cuda.current_stream(audio.device).cuda_stream,
         )
     _build.check(lib, err, "stream_prefix")
-    stream_prefix.launches += 1
+    _build.count(stream_prefix)
     return out
 
 
-stream_prefix.launches = 0
+_build.counted(stream_prefix)
 
 
 def _wrap_int32(u: torch.Tensor) -> torch.Tensor:
@@ -142,8 +142,8 @@ def fft_energy(xr: torch.Tensor, xi: torch.Tensor, fe) -> torch.Tensor:
             out.data_ptr(), torch.cuda.current_stream(xr.device).cuda_stream,
         )
     _build.check(lib, err, "fft_energy")
-    fft_energy.launches += 1
+    _build.count(fft_energy)
     return out
 
 
-fft_energy.launches = 0
+_build.counted(fft_energy)

@@ -141,8 +141,8 @@ def launch_suffix(base: torch.Tensor, num_windows: int, stride: int, frames: int
             out.data_ptr(), int(scaled), cpt, torch.cuda.current_stream(base.device).cuda_stream,
         )
     _build.check(lib, err, "stream_suffix")
-    stream_suffix.launches += 1
+    _build.count(stream_suffix)
     return out
 
 
-stream_suffix.launches = 0
+_build.counted(stream_suffix)

@@ -38,6 +38,7 @@ expressions, not the mathematically exact values:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict
 
@@ -136,16 +137,30 @@ def base_frames_fast(audio: torch.Tensor, fe) -> torch.Tensor:
     frames = audio.to(torch.float32).unfold(-1, win, step)  # (..., F, win)
     spec = torch.fft.rfft(frames * tb["window"], n=512, dim=-1)
     energy = (spec.real.square() + spec.imag.square()) * (1.0 / 512.0**2)
-    if energy.is_cuda:  # the filterbank product in full float32, whatever the caller set
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            fbank = torch.matmul(energy, tb["fb"])
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
-    else:
+    with _float32_products(energy.is_cuda):
         fbank = torch.matmul(energy, tb["fb"])
     return torch.sqrt(fbank.clamp(min=0.0))
+
+
+@contextlib.contextmanager
+def _float32_products(cuda: bool):
+    """Matrix products in full float32 inside the block, whatever the caller
+    allowed: no TF32 on the card; on the CPU no oneDNN, which runs float32
+    products in bf16 under ``torch.set_float32_matmul_precision("medium")``
+    on CPUs with bf16 units (the default CPU product is not oneDNN's)."""
+    if cuda:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        prev = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        if cuda:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        else:
+            torch.backends.mkldnn.enabled = prev
 
 
 def wide_dynamic_function_fast(x: torch.Tensor, tb) -> torch.Tensor:

@@ -18,7 +18,7 @@ of the global batch and the collectives are explicit:
   window-axis parallelism of the stream predict) and gathers the result.
 
 The pretraining step (``train/steps.make_pretrain_step``) averages gradients
-over the group with ``DistributedDataParallel``; train-mode BatchNorm and
+over the group with one all-reduce of them all; train-mode BatchNorm and
 drop-connect (``models/efficientnet.py``) read ``world_size`` and ``rank``
 of the default group so that a step on W processes is the step of one
 process on the global batch.

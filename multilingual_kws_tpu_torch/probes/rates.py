@@ -86,11 +86,11 @@ def rate_chain(x: torch.Tensor, y: torch.Tensor, op: str, k: int) -> torch.Tenso
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, err, "rate_chain")
-    rate_chain.launches += 1
+    _build.count(rate_chain)
     return out
 
 
-rate_chain.launches = 0
+_build.counted(rate_chain)
 
 
 def dot_chain_plain(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
@@ -146,11 +146,11 @@ def launch_dot_chain(x: torch.Tensor, w_img: torch.Tensor, k: int):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, err, "dot_chain")
-    dot_chain.launches += 1
+    _build.count(dot_chain)
     return out
 
 
-dot_chain.launches = 0
+_build.counted(dot_chain)
 
 
 def probe_inputs(device, seed: int = 0, rows: int = ROWS):

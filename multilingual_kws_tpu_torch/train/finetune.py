@@ -21,7 +21,12 @@ statistics are first calibrated to the data on two train batches
 
 Small training sets stay on the device (``AudioDataset.build_resident_bank``,
 chosen automatically below 4 GiB): each epoch then uploads its bank indices
-once, and each step gathers, augments and featurizes on the device.
+once and runs as one device program, as in the JAX package
+(``train/steps.make_finetune_epoch_scan``: on the card a CUDA graph of the
+step, replayed once a step; each phase captures its own, with its own
+optimizer). The streaming pipeline (``resident=False``) runs a step at a
+time from host batches; both pipelines take the same steps on the same
+batches.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from ..ops.augment import SpecAugParams
 from ..settings import ModelSettings, standard_microspeech_model_settings
 from . import checkpoints as ckpt
 from .metrics import CSVLogger
-from .steps import calibrate_batch_stats, make_finetune_step
+from .steps import calibrate_batch_stats, make_finetune_epoch_scan, make_finetune_step
 
 HEAD_PREFIX = "transfer_head"
 
@@ -69,8 +74,12 @@ class FinetuneResult:
     details: Dict
     dataset: AudioDataset
     # per phase: {"loss", "accuracy", "val_loss", "val_accuracy"} per epoch
-    # and "step_loss", each epoch's per-step losses
+    # and "step_loss", "step_accuracy", each epoch's per-step metrics; on
+    # the card, with the resident bank, "graph": the CUDA graph's replays,
+    # the eager steps before its capture and the capture's seconds
     history: List[Dict] = field(default_factory=list)
+    # the last phase's optimizer (the JAX package's ``state.opt_state``)
+    optimizer: Optional[torch.optim.Optimizer] = None
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return self.model.state_dict()
@@ -202,30 +211,31 @@ def transfer_learn(
     # the reference's quirk: steps_per_epoch = batch_size * num_batches
     steps_per_epoch = batch_size * num_batches
 
-    def train_epoch(step) -> List[Dict[str, torch.Tensor]]:
-        if not resident:
-            return [
-                step(specs, labels)
-                for specs, labels in dataset.train_batches(
-                    train_files, batch_size=batch_size, num_steps=steps_per_epoch, prefetch=2
-                )
-            ]
-        # one upload of the epoch's bank indices, then a device loop
-        draws = list(dataset.host_train_indices(train_files, batch_size, steps_per_epoch, bank))
-        idx, lbl, sil = dataset._put_batch(tuple(np.stack(a) for a in zip(*draws)))
-        return [
-            step(dataset._train_device(bank["bank"], idx[i], sil[i]), lbl[i])
-            for i in range(steps_per_epoch)
-        ]
-
-    def run_phase(lr, trainable) -> Dict:
+    def run_phase(lr, trainable) -> Tuple[Dict, torch.optim.Optimizer]:
         step, evaluate, _ = make_finetune_step(model, lr, trainable)
-        history = {"val_accuracy": [], "val_loss": [], "accuracy": [], "loss": [], "step_loss": []}
+        optimizer = step.optimizer
+        if resident:
+            # one device program an epoch (the JAX package's scanned epoch)
+            epoch_scan = make_finetune_epoch_scan(model, lr, trainable, dataset, bank["bank"], device=dev)
+            optimizer = epoch_scan.optimizer
+        history = {"val_accuracy": [], "val_loss": [], "accuracy": [], "loss": [], "step_loss": [],
+                   "step_accuracy": []}
         for epoch in range(num_epochs):
             t0 = time.time()
-            metrics = train_epoch(step)
-            losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()
-            accs = torch.stack([m["accuracy"] for m in metrics]).cpu().numpy()
+            if resident:
+                # one upload of the epoch's bank indices
+                draws = list(dataset.host_train_indices(train_files, batch_size, steps_per_epoch, bank))
+                losses, accs = epoch_scan(*dataset._put_batch(tuple(np.stack(a) for a in zip(*draws))))
+            else:
+                metrics = [
+                    step(specs, labels)
+                    for specs, labels in dataset.train_batches(
+                        train_files, batch_size=batch_size, num_steps=steps_per_epoch, prefetch=2
+                    )
+                ]
+                losses = torch.stack([m["loss"] for m in metrics])
+                accs = torch.stack([m["accuracy"] for m in metrics])
+            losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
             val = evaluate_dataset(evaluate, dataset, val_files, batch_size)
             ep = {
                 "epoch": epoch,
@@ -237,6 +247,7 @@ def transfer_learn(
             for k in ("loss", "accuracy", "val_loss", "val_accuracy"):
                 history[k].append(ep[k])
             history["step_loss"].append(losses.tolist())
+            history["step_accuracy"].append(accs.tolist())
             if logger:
                 logger.log(ep)
             if verbose:
@@ -246,12 +257,18 @@ def transfer_learn(
                     f"({time.time()-t0:.1f}s)",
                     flush=True,
                 )
-        return history
+        if resident and epoch_scan.graph is not None:
+            history["graph"] = {"replays": epoch_scan.replays, "eager_steps": epoch_scan.eager_steps,
+                                "capture_s": epoch_scan.capture_s}
+        return history, optimizer
 
+    phases = []
     try:
-        phases = [run_phase(primary_lr, _head_only)]
+        history, optimizer = run_phase(primary_lr, _head_only)
+        phases.append(history)
         if backprop_into_embedding:
-            phases.append(run_phase(embedding_lr, _head_and_top))
+            history, optimizer = run_phase(embedding_lr, _head_and_top)
+            phases.append(history)
     finally:
         if logger:
             logger.close()
@@ -268,7 +285,8 @@ def transfer_learn(
         val_accuracy=va,
         target=target,
     )
-    return FinetuneResult(name=name, model=model, details=details, dataset=dataset, history=phases)
+    return FinetuneResult(name=name, model=model, details=details, dataset=dataset, history=phases,
+                          optimizer=optimizer)
 
 
 def evaluate_dataset(evaluate_fn, dataset: AudioDataset, files, batch_size) -> Dict[str, float]:

@@ -11,9 +11,9 @@ rows of the global batch:
   global batch from the same seed and keeps its rows
   (``AudioDataset(shard=...)``): the augment kernel and the frontend run on
   them only;
-- the step (``train/steps.make_pretrain_step``) averages gradients with
-  ``DistributedDataParallel``; BN normalizes over the global batch and
-  drop-connect draws the global batch's masks (``models/efficientnet.py``);
+- the step (``train/steps.make_pretrain_step``) averages the gradients by
+  one all-reduce; BN normalizes over the global batch and drop-connect
+  draws the global batch's masks (``models/efficientnet.py``);
 - validation spreads each eval batch over the ranks and all-reduces the
   sums, padded rows not counted;
 - rank 0 alone writes checkpoints, the CSV log and the history.
@@ -25,7 +25,12 @@ a plain single-device loop.
 Small training sets stay on the device (``AudioDataset.build_resident_bank``,
 chosen automatically below ``resident_max_bytes``): each epoch uploads its
 bank indices once, and each step gathers, augments and featurizes on the
-device. Every step and evaluation runs under ``exact_float32``.
+device. With ``scan_epoch`` (the default, as in the JAX package) the
+resident epoch is one device program (``build_fused_resident_epoch``: on
+the card a CUDA graph of the step, replayed once a step); without it the
+same steps run one at a time. BN calibration, validation and checkpoints
+run eagerly between epochs. Every step and evaluation runs under
+``exact_float32``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..ops.augment import SpecAugParams
 from ..parallel import mesh
 from ..settings import ModelSettings, standard_microspeech_model_settings
 from .checkpoints import BestValCheckpoint
+from .graphs import EpochGraph, check_on_device
 from .metrics import CSVLogger, save_history
 from .steps import calibrate_batch_stats, flat_adam, make_pretrain_step, sparse_ce_from_logits
 
@@ -80,20 +86,44 @@ class PretrainConfig:
     # (None: on when the bank fits resident_max_bytes)
     resident_data: Optional[bool] = None
     resident_max_bytes: int = AudioDataset.RESIDENT_MAX_BYTES
-    # the JAX package's choice between a resident epoch as one scanned device
-    # program (True) and a step at a time (False, the same draws); the port
-    # runs eagerly and has only the latter, so True is refused
-    scan_epoch: bool = False
+    # run each resident epoch as one device program (True: on the card a
+    # CUDA graph of the step, build_fused_resident_epoch) or a step at a
+    # time (False); the same steps on the same draws either way
+    scan_epoch: bool = True
     # "bfloat16": convolutions, BN and the embedding head's dense layers in
     # bf16; parameters, BN statistics, the 192-d embedding, logits and the
     # optimizer stay float32. "float32": float32 throughout (no TF32)
     compute_dtype: str = "float32"
     device: str = "cuda"
 
-    def __post_init__(self):
-        if self.scan_epoch:
-            raise ValueError("scan_epoch=True: the port has no scanned epoch; it runs a step at a time "
-                             "(scan_epoch=False), with the same draws")
+
+def build_fused_resident_epoch(model, optimizer, group, dataset: AudioDataset, bank: torch.Tensor,
+                               drop_generator: torch.Generator, device="cuda") -> EpochGraph:
+    """A resident pretraining epoch as one device program: the counterpart
+    of the JAX package's ``build_fused_resident_epoch`` (a ``lax.scan`` of
+    the fused gather + augment + featurize + step).
+
+    Returns ``epoch(idx_all, lbl_all, sil_all) -> (losses, accs)``
+    (``train/graphs.EpochGraph``): the epoch's (steps, B) global-batch bank
+    rows, label ids and silence flags from ``dataset.host_train_indices``,
+    uploaded once; (steps,) losses and accuracies on the device. Each step
+    is ``dataset._train_device(bank, rows, is_silence, keep)`` (this rank's
+    rows ``keep`` of the global batch) followed by ``make_pretrain_step``'s
+    update of ``model`` with ``optimizer`` over ``group``, drop-connect drawn
+    from ``drop_generator``. On the card (``device``, default ``cuda``: it
+    raises without one) the epoch is a CUDA graph of the step, replayed once
+    a step, collectives included; on the CPU the same step runs as a plain
+    loop. The model, the dataset and ``bank`` must be on ``device``."""
+    dev = resolve_device(device)
+    check_on_device(dev, model, dataset, bank)
+    step, _ = make_pretrain_step(model, optimizer, group)
+
+    def body(rows, labels, is_silence):
+        keep = dataset._keep(rows.shape[0])
+        m = step(dataset._train_device(bank, rows, is_silence, keep), labels[keep], drop_generator)
+        return m["loss"], m["accuracy"]
+
+    return EpochGraph(body, dev, generators=[dataset.gen, drop_generator], optimizer=optimizer)
 
 
 def _validate(model, dataset: AudioDataset, val_files, val_labels, batch_size: int, group):
@@ -221,12 +251,22 @@ def pretrain(
 
     drop = torch.Generator(device=dev)
     drop.manual_seed(config.shuffle_seed + 1)
+    fused_epoch = (build_fused_resident_epoch(model, optimizer, group, dataset, bank["bank"], drop, device=dev)
+                   if use_resident and config.scan_epoch else None)
     try:
         for epoch in range(config.num_epochs):
             t0 = time.time()
-            metrics = [step(specs, labels, drop) for specs, labels in epoch_batches(steps_per_epoch)]
-            losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()
-            accs = torch.stack([m["accuracy"] for m in metrics]).cpu().numpy()
+            if fused_epoch is not None:
+                # one upload of the epoch's bank indices, one device program
+                draws = list(dataset.host_train_indices(
+                    train_files, config.batch_size, steps_per_epoch, bank, labels=train_labels, single_target=False
+                ))
+                losses, accs = fused_epoch(*dataset._put_batch(tuple(np.stack(a) for a in zip(*draws))))
+            else:
+                metrics = [step(specs, labels, drop) for specs, labels in epoch_batches(steps_per_epoch)]
+                losses = torch.stack([m["loss"] for m in metrics])
+                accs = torch.stack([m["accuracy"] for m in metrics])
+            losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
 
             if config.bn_calibration_batches > 0:
                 calib = [specs for specs, _ in epoch_batches(config.bn_calibration_batches)]

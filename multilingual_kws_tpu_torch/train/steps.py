@@ -8,7 +8,11 @@ train_monolingual_embedding.py:103-137):
 - ``adam``: Keras-default Adam (eps 1e-7, not torch's 1e-8) over the
   trainable parameters only. Every other parameter has requires_grad off and
   is not in the optimizer, so it never changes: the JAX package's
-  ``multi_transform`` with ``set_to_zero``;
+  ``multi_transform`` with ``set_to_zero``. On the card it is
+  ``capturable`` (a CUDA graph can hold its step): the step count lives on
+  the device and the bias corrections are computed there in float32, as
+  optax computes them; on the CPU they are computed in Python's float64
+  (a last-bit difference in the update);
 - ``flat_adam``: the same Adam over every parameter, for pretraining;
 - ``sparse_ce_from_probs``: Keras sparse categorical cross-entropy on
   probabilities, clipped to [1e-7, 1] with ``clamp`` (zero gradient outside,
@@ -19,6 +23,9 @@ train_monolingual_embedding.py:103-137):
 - ``make_pretrain_step``: a train-mode step of the embedding model (BN on
   batch statistics, updating its running ones; drop-connect), optionally
   data-parallel over a process group;
+- ``make_finetune_epoch_scan``: a whole resident fine-tune epoch (bank
+  gather, augment, featurize, step), on the card as a CUDA graph
+  (``train/graphs.py``);
 - ``calibrate_batch_stats``: BN running statistics set to the data's
   moments, for a trunk that was never pretrained.
 
@@ -33,17 +40,23 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.parallel import DistributedDataParallel
 
-from .. import exact_float32
+from .. import exact_float32, resolve_device
 from ..parallel import mesh
+from .graphs import EpochGraph, check_on_device
 
 ParamPath = Tuple[str, ...]
 
 
+def _on_card(params: List[torch.nn.Parameter]) -> bool:
+    return bool(params) and all(p.is_cuda for p in params)
+
+
 def adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> torch.optim.Adam:
-    """Keras-default Adam (b1 0.9, b2 0.999, eps 1e-7)."""
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7)
+    """Keras-default Adam (b1 0.9, b2 0.999, eps 1e-7); ``capturable`` when
+    the parameters are on the card."""
+    params = list(params)
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7, capturable=_on_card(params))
 
 
 def flat_adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> torch.optim.Adam:
@@ -53,8 +66,10 @@ def flat_adam(params: Iterable[torch.nn.Parameter], learning_rate: float) -> tor
     instead of a small loop per leaf; ``foreach`` gets the same from the
     leaves as they are (each elementwise stage over all of them in a few
     multi-tensor launches), with the same update rule, so nothing needs
-    flattening."""
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7, foreach=True)
+    flattening. ``capturable`` when the parameters are on the card."""
+    params = list(params)
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7, foreach=True,
+                            capturable=_on_card(params))
 
 
 def sparse_ce_from_probs(probs: torch.Tensor, labels: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -97,7 +112,8 @@ def make_finetune_step(model: nn.Module, learning_rate: float, trainable: Callab
 
     - ``step(specs, labels)`` updates the model in place and returns
       {"loss", "accuracy"} as device scalars (no host sync); the trainable
-      parameters' ``.grad`` hold the step's gradients afterwards;
+      parameters' ``.grad`` hold the step's gradients afterwards, and
+      ``step.optimizer`` is its Adam;
     - ``evaluate(specs, labels)`` returns the same metrics without a
       gradient;
     - ``predict(specs)`` returns the (B, 3) softmax."""
@@ -113,6 +129,8 @@ def make_finetune_step(model: nn.Module, learning_rate: float, trainable: Callab
             loss.backward()
             opt.step()
         return {"loss": loss.detach(), "accuracy": acc}
+
+    step.optimizer = opt
 
     @torch.no_grad()
     def evaluate(specs, labels) -> Dict[str, torch.Tensor]:
@@ -141,18 +159,25 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
 
     ``group``: the default process group (``mesh.default_group()``) to run
     data-parallel over: each rank passes its rows of the global batch
-    (``mesh.local_rows``); ``DistributedDataParallel`` averages the
-    gradients, BN normalizes over the global batch, and the loss and
-    accuracy returned are averaged over the ranks, so every rank sees the
-    metrics of the global batch. BN and drop-connect span the default group
+    (``mesh.local_rows``); the gradients are averaged over the ranks by one
+    all-reduce of all of them, flattened, after the backward pass; BN
+    normalizes over the global batch, and the loss and accuracy returned are
+    averaged over the ranks, so every rank sees the metrics of the global
+    batch. BN and drop-connect span the default group
     (``models/efficientnet.py``), so another group is refused, and so is
-    none while the default group has more than one rank."""
+    none while the default group has more than one rank.
+
+    The step makes no host sync and no host-side collective bookkeeping, so
+    a CUDA graph can hold it, collectives included (``train/graphs.py``).
+    ``DistributedDataParallel`` is not used: its reducer needs a dozen eager
+    iterations and NCCL's asynchronous error handling off before it can be
+    captured, and on one card it overlaps nothing."""
     if group is not None and group != mesh.default_group():
         raise ValueError("make_pretrain_step runs over the default process group only: BN and drop-connect span it")
     if group is None and mesh.world_size() > 1:
         raise ValueError("make_pretrain_step: pass the default process group of "
                          f"{mesh.world_size()} ranks, over which BN and drop-connect run")
-    net = DistributedDataParallel(model, process_group=group, broadcast_buffers=False) if group is not None else model
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def metrics(logits, labels):
         loss = sparse_ce_from_logits(logits, labels).mean()
@@ -163,8 +188,10 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
         model.train()
         with exact_float32():
             optimizer.zero_grad(set_to_none=True)
-            loss, acc = metrics(net(specs, drop_generator=drop_generator), labels)
+            loss, acc = metrics(model(specs, drop_generator=drop_generator), labels)
             loss.backward()
+            if group is not None:
+                _average_gradients(params, group)
             optimizer.step()
         out = torch.stack([loss.detach(), acc])
         if group is not None:
@@ -180,6 +207,46 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
         return {"loss": loss, "accuracy": acc}
 
     return step, evaluate
+
+
+@torch.no_grad()
+def _average_gradients(params: List[torch.nn.Parameter], group) -> None:
+    """Each gradient := its mean over the ranks of ``group``: one all-reduce
+    of all of them, flattened."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def make_finetune_epoch_scan(model: nn.Module, learning_rate: float, trainable: Callable[[ParamPath], bool],
+                             dataset, bank: torch.Tensor, device="cuda") -> EpochGraph:
+    """One resident fine-tune epoch as one device program: the counterpart
+    of the JAX package's ``make_finetune_epoch_scan``, a ``lax.scan`` of
+    (bank gather -> augment -> featurize -> step).
+
+    Returns ``epoch(idx_all, lbl_all, sil_all) -> (losses, accs)``
+    (``train/graphs.EpochGraph``): the epoch's (steps, B) bank rows, label
+    ids and silence flags from ``dataset.host_train_indices``, uploaded
+    once; (steps,) losses and accuracies on the device, pulled once. Each
+    step is the resident step: ``dataset._train_device(bank, rows,
+    is_silence)`` (the device draws from ``dataset.gen``, the augment
+    kernel, the frontend kernel, SpecAugment), then ``make_finetune_step``'s
+    update with a fresh Adam (``epoch.optimizer``). On the card (``device``,
+    default ``cuda``: it raises without one) the epoch is a CUDA graph of
+    the step replayed once a step; on the CPU the same step runs as a plain
+    loop. The model, the dataset and ``bank`` must be on ``device``."""
+    dev = resolve_device(device)
+    check_on_device(dev, model, dataset, bank)
+    step, _, _ = make_finetune_step(model, learning_rate, trainable)
+
+    def body(rows, labels, is_silence):
+        m = step(dataset._train_device(bank, rows, is_silence), labels)
+        return m["loss"], m["accuracy"]
+
+    return EpochGraph(body, dev, generators=[dataset.gen], optimizer=step.optimizer)
 
 
 @torch.no_grad()

@@ -24,7 +24,7 @@ from multilingual_kws_tpu_torch.ops import micro_torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 from multilingual_kws_tpu_torch.stream import engine, realtime
-from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune, pretrain
+from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune, pretrain, steps
 from multilingual_kws_tpu_torch.utils.wav import write_wav
 
 REPO = Path(__file__).resolve().parents[1]
@@ -92,6 +92,8 @@ ENTRY_POINTS = {
     "featurize_stream": lambda: engine.featurize_stream(_AUDIO, 16000, _FLAGS),
     "AudioDataset": lambda: dataset.AudioDataset(_SETTINGS, ["x"], "no_such_dir", []),
     "transfer_learn": lambda: finetune.transfer_learn("x", [], [], []),
+    "make_finetune_epoch_scan": lambda: steps.make_finetune_epoch_scan(None, 1e-3, finetune._head_only, None, None),
+    "build_fused_resident_epoch": lambda: pretrain.build_fused_resident_epoch(None, None, None, None, None, None),
     "featurize_files": lambda: evaluate.featurize_files(["no_such.wav"]),
     "file2spec": lambda: dataset.file2spec(_SETTINGS, "no_such.wav"),
     "measure_rates": lambda: rates.measure_rates(),
@@ -160,7 +162,8 @@ def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
-@pytest.mark.parametrize("entry", [dscnn.DSCNN, wav2vec2_embed.Wav2Vec2Embedder], ids=lambda e: e.__name__)
+@pytest.mark.parametrize("entry", [dscnn.DSCNN, wav2vec2_embed.Wav2Vec2Embedder, steps.make_finetune_epoch_scan,
+                                   pretrain.build_fused_resident_epoch], ids=lambda e: e.__name__)
 def test_new_model_entry_points_default_to_the_card(entry):
     import inspect
 

@@ -245,13 +245,22 @@ def test_pretrain_on_cpu(pretrained, corpus):
     assert all(torch.equal(sd[k], v) for k, v in emb.items())
 
 
-def test_pretrain_config_refuses_a_scanned_epoch():
-    """The JAX package's ``scan_epoch`` picks one scanned device program
-    per resident epoch; the port has only the per-step loop, so asking
-    for the scan is an error rather than a silent no-op."""
-    assert PretrainConfig().scan_epoch is False
-    with pytest.raises(ValueError, match="scan_epoch"):
-        PretrainConfig(scan_epoch=True)
+def test_scanned_epoch_is_the_default_and_equals_the_step_loop(corpus):
+    """``scan_epoch`` defaults to True, as in the JAX package: each resident
+    epoch is one device program (``build_fused_resident_epoch``; on the card
+    a CUDA graph, on the CPU the same step as a plain loop). It takes the
+    same steps on the same draws as ``scan_epoch=False``: the history, every
+    tensor of the model and the dataset's generator are ==."""
+    assert PretrainConfig().scan_epoch is True
+    runs = {}
+    for scan in (True, False):
+        config = _config(num_epochs=2, steps_per_epoch=3, resident_data=True, scan_epoch=scan)
+        runs[scan] = _run(corpus, config, model=lecun_init_(KWSEmbeddingModel(4, _tiny_trunk()), 0))
+    (ma, ha, da), (mb, hb, db) = runs[True], runs[False]
+    assert ha == hb and np.isfinite(ha["loss"]).all()
+    for (k, t), u in zip(ma.state_dict().items(), mb.state_dict().values()):
+        assert torch.equal(t, u), k
+    assert torch.equal(da.gen.get_state(), db.gen.get_state())
 
 
 def test_resume_continues_from_checkpoint(pretrained, corpus):
