@@ -117,7 +117,8 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       CPU (same global batch and drop-connect masks; loss rtol 1e-5,
       gradients rtol 1e-4, atol 1e-4 of each tensor's largest) from a state
       that is the same in every run (``pretrain_gate``: the seeded init, BN
-      calibrated on the CPU; each tensor's error is printed); both kernels
+      calibrated on the CPU; each tensor's error is printed) on a batch that
+      is too (``gate_batch``: the first of a dataset of its own); both kernels
       == plain at the pretraining batch. Each resident epoch is a CUDA
       graph (``build_fused_resident_epoch``, NCCL's collectives inside): it
       holds ``pretrain()`` ``==`` ``pretrain(scan_epoch=False)`` (history,
@@ -176,6 +177,19 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       wav2vec2 embedder, which needs ``transformers``: a tiny random model
       (no hub weights) on the card against the CPU, within 1e-4; without the
       package the script says so and checks that the error names it.
+  (l) the port's benchmark program and graft entry points: ``bench.main``
+      (its preflight: clip_features on 256 clips, stream_prefix and
+      stream_suffix on four 2.5 s clips, == the port's copy of micro_exact,
+      augment_quantize against its plain version; then the headline at full
+      width and batch 2048, float32 and bf16, chained L_TARGET_S a dtype),
+      its JSON line printed on a line of its own, B1-B4 launched on its
+      path; ``bench.measure_pretrain_step`` at batch 512 (graphed epochs of
+      L_PT_STEPS steps) and the graphed epoch == the eager steps on its first
+      two steps; ``graft_entry.entry()`` on the card against the CPU (logits
+      within L_MODEL_TOL); ``graft_entry.dryrun_multichip(1,
+      full_size=True)`` over NCCL (its four lines); and
+      ``examples/tutorial.run_tutorial`` at full width. Each path's launches
+      by kernel go into the kernels line (``phase_l_launches``).
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
@@ -1850,6 +1864,24 @@ def pretrain_gate(torch, specs, labels, group):
     return {"errors": errors, "loss": (lg, lc), "state": state_hash, "batch": batch_hash}
 
 
+def gate_batch(torch, corpus, train_labels):
+    """Phase i's gate batch: the first training batch of a dataset of its
+    own, built as pretrain() builds its dataset (seed 0), on the card. It
+    depends on the corpus alone, not on how many epochs any earlier loop
+    drew from a dataset (drawn from pretrain()'s dataset after the phase's
+    other loops, the batch, and with it the gate's errors, moved whenever
+    they changed)."""
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+    from multilingual_kws_tpu_torch.ops.augment import SpecAugParams
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+
+    ds = AudioDataset(standard_microspeech_model_settings(PT_WORDS + 1), corpus["words"], corpus["bg_dir"], [],
+                      silence_percentage=1.0, unknown_percentage=0.0, spec_aug_params=SpecAugParams(percentage=80),
+                      seed=0, device="cuda")
+    return next(ds.train_batches_resident(corpus["train"], PT_BATCH, 1, labels=train_labels, single_target=False,
+                                          bank=ds.build_resident_bank(corpus["train"])))
+
+
 def pretrain_sides(torch, model, corpus, group):
     """Phase i's graphed and eager pretraining loops on copies of ``model``:
     each with its own dataset (pretrain()'s, seed 5), resident bank, Adam
@@ -2032,10 +2064,10 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
 
     # 2. one step on the card against the same step on the CPU: the same
     # global batch, the same drop-connect masks (one CPU generator's draws),
-    # from a state that is the same in every run (pretrain_gate)
+    # from a state that is the same in every run (pretrain_gate), on a batch
+    # that is too (gate_batch)
     ds, bank = runs["float32"]["ds"], runs["float32"]["bank"]
-    specs, labels = next(ds.train_batches_resident(corpus["train"], PT_BATCH, 1, labels=train_labels,
-                                                   single_target=False, bank=bank))
+    specs, labels = gate_batch(torch, corpus, train_labels)
     step_gate = pretrain_gate(torch, specs, labels, group)
     step_err = max(step_gate["errors"].values())
 
@@ -2845,6 +2877,140 @@ def dscnn_phase(torch, fe, corpus, wave, labels, work: Path, smi: str):
     print(f"phase k [{smi}]: wav2vec2 embedder: {w2v}")
 
 
+L_TARGET_S = 0.5  # phase l: the headline's chained timing, each dtype (the bench's default is 2 s)
+L_PT_BATCH = 512  # phase l: the bench's pretraining step
+L_PT_STEPS = 16  # phase l: steps an epoch of it (the bench's default is 96)
+L_MODEL_TOL = 1e-5  # entry() card against CPU: tests/test_torch_model.py's rtol and atol on logits
+
+
+def phase_launches(torch, run):
+    """(run's result, {wrapper name: launches during run}), the counters
+    set to 0 just before it."""
+    from multilingual_kws_tpu_torch.ops import _build
+
+    for w in _build.WRAPPERS:
+        w.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {w.__name__: w.launches for w in _build.WRAPPERS if w.launches}
+
+
+def bench_phase(torch, work: Path):
+    """Phase l: the port's benchmark program and graft entry points on the
+    card (see the module docstring). Returns each path's launches by
+    kernel wrapper."""
+    import contextlib
+    import io
+
+    from multilingual_kws_tpu_torch import bench, graft_entry
+    from multilingual_kws_tpu_torch.examples import tutorial
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # 1. the bench's line: its preflight (B1 on 256 clips, B2 and B3 on four
+    # 2.5 s clips, B4 on 64 against the plain version), then the headline
+    # at full width and batch 2048, float32 and bf16, a shorter timing
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, launches["bench"] = phase_launches(torch, lambda: bench.main([], target_s=L_TARGET_S))
+    bench_s = time.perf_counter() - t0
+    out = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(out) == 1, f"bench: exit {rc}, output {out}")
+    line = json.loads(out[0])
+    check(line["bit_exact_on_chip"] is True and line["value"] > 0 and line["device"]["count"] >= 1
+          and line["mfu"] is not None and line["flops_per_clip"] > 0, f"bench line {line}")
+    need = ("clip_features", "stream_prefix", "stream_suffix", "augment_quantize")
+    check(all(launches["bench"].get(k, 0) > 0 for k in need), f"bench launches {launches['bench']}: not all of {need}")
+
+    # 2. the pretraining step at batch 512 on fixed feature windows, as a
+    # graphed epoch, float32 and bf16; then graphed == eager on an epoch's
+    # first two steps (the eager warm-up step and the first replay), under
+    # deterministic cuDNN, from one init
+    t0 = time.perf_counter()
+    step, launches["pretrain_step"] = phase_launches(torch, lambda: bench.measure_pretrain_step(
+        batch=L_PT_BATCH, steps=L_PT_STEPS, reps=3))
+    step_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    specs = torch.from_numpy(rng.normal(0, 2, (L_PT_BATCH, 49, 40, 1)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 761, (L_PT_BATCH,))).cuda()
+    inputs = bench.spec_epoch_inputs(labels, 2)
+    with deterministic_cudnn(torch):
+        mg, me = bench.embedding_model("float32", "cuda"), bench.embedding_model("float32", "cuda")
+        epoch, _ = bench.spec_pretrain_epoch(mg, specs)
+        lg, _ = epoch(*inputs)
+        _, body = bench.spec_pretrain_epoch(me, specs)
+        le = torch.stack([body(*(t[i] for t in inputs))[0] for i in range(2)])
+        torch.cuda.synchronize()
+    diffs = tensor_diffs(torch, mg.state_dict(), me.state_dict())
+    check(epoch.replays == 1 and torch.equal(lg, le) and not diffs,
+          f"graphed pretraining step != eager: replays {epoch.replays}, losses {lg.tolist()} {le.tolist()}, {diffs}")
+    del mg, me, epoch, body
+
+    # 3. entry() on the card against the CPU on seeded audio, both with the
+    # weights tests/test_torch_graft_entry.py gives the JAX entry's, so that
+    # the rows differ: BN statistics and parameters moved off their init,
+    # the stem's kernel scaled by 255 (undoing the 1/255 input scale)
+    (fwd_gpu, (example,)), (fwd_cpu, _) = graft_entry.entry(), graft_entry.entry(device="cpu")
+    moved, rng = {}, np.random.default_rng(1)
+    for k, t in fwd_cpu.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            t = t + torch.from_numpy(rng.uniform(0.05, 0.5, tuple(t.shape)).astype(np.float32))
+        elif t.is_floating_point():
+            t = t * torch.from_numpy(rng.uniform(0.8, 1.5, tuple(t.shape)).astype(np.float32))
+        moved[k] = t * 255.0 if k == "trunk.stem.conv.weight" else t
+    for f in (fwd_gpu, fwd_cpu):
+        f.model.load_state_dict(moved)
+    audio = np.random.default_rng(2).normal(0, 0.2, (8, 16000)).astype(np.float32).clip(-1, 1)
+    with torch.inference_mode():
+        got, launches["entry"] = phase_launches(torch, lambda: fwd_gpu(torch.from_numpy(audio).cuda()).cpu())
+        want = fwd_cpu(torch.from_numpy(audio))
+        shape = tuple(fwd_gpu(example).shape)
+    entry_err = float((got - want).abs().max())
+    spread = float(want.max(0).values.sub(want.min(0).values).max())  # across the clips: ten tolerances or more
+    check(shape == (8, 761) and spread > 10 * L_MODEL_TOL
+          and torch.allclose(got, want, rtol=L_MODEL_TOL, atol=L_MODEL_TOL),
+          f"entry(): card against CPU {entry_err} (shape {shape}, spread across clips {spread})")
+    del fwd_gpu, fwd_cpu
+
+    # 4. the multi-card dry run on one rank over NCCL at full width (a
+    # spawned process: its launches are its own)
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(1, full_size=True)
+    dry_s = time.perf_counter() - t0
+    check(len(dry["lines"]) == 4 and np.isfinite([dry["step_loss"], dry["fused_loss"], *dry["epoch_losses"]]).all()
+          and dry["windows"] == 100, f"dryrun_multichip(1): {dry}")
+
+    # 5. the tutorial at full width (the notebook's fine-tune: 4 x 64 steps
+    # at batch 64)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary, launches["tutorial"] = phase_launches(torch, lambda: tutorial.run_tutorial(work / "tutorial"))
+    tut_s = time.perf_counter() - t0
+    check(summary["embedding_dim"] == 192 and all(0.0 <= summary[k] <= 1.0 for k in
+                                                   ("val_accuracy", "test_accuracy", "nontarget_accuracy"))
+          and all(launches["tutorial"].get(k, 0) > 0 for k in ("clip_features", "augment_quantize")),
+          f"tutorial: {summary}, launches {launches['tutorial']}")
+
+    print(out[0])
+    print(f"phase l: bench (preflight, then the headline at batch {bench.BATCH}, chained {L_TARGET_S} s a dtype) "
+          f"{bench_s:.2f} s: {line['value']} clips/s at {line['model_compute_dtype']} (f32 {line['f32_clips_per_sec']}, "
+          f"bf16 {line['bf16_clips_per_sec']}), {line['flops_per_clip']} FLOP a clip, MFU {line['mfu']:.4f}; "
+          f"launches {launches['bench']}")
+    print(f"phase l: pretraining step at batch {L_PT_BATCH}, graphed epochs of {L_PT_STEPS} (median of 3) "
+          f"{step_s:.2f} s: f32 {step['f32_ms_per_step']} ms {step['f32_ms_per_step_reps']}, bf16 "
+          f"{step['bf16_ms_per_step']} ms {step['bf16_ms_per_step_reps']}; graphed == eager on an epoch's first two "
+          f"steps, bitwise, under deterministic cuDNN; launches {launches['pretrain_step']}")
+    print(f"phase l: entry() card vs CPU on 8 clips: max |logit delta| {entry_err:.2e} (rtol, atol {L_MODEL_TOL}; "
+          f"logits spread {spread:.2e} across the clips); "
+          f"launches {launches['entry']}")
+    print(f"phase l: dryrun_multichip(1, full_size=True) over nccl {dry_s:.2f} s: " + " | ".join(dry["lines"]))
+    print(f"phase l: run_tutorial at full width {tut_s:.2f} s: {json.dumps(summary)}; launches {launches['tutorial']}")
+    print(f"phase l: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3119,6 +3285,11 @@ def main() -> int:
     analysis_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
     # (k) the DS-CNN, the native host path, profiling, the build cache, wav2vec2
     dscnn_phase(torch, fe, corpus, wave, labels, Path(work.name), smi)
+    # (l) the benchmark program, the graft entry points, the tutorial
+    phase_l = bench_phase(torch, Path(work.name))
+    for k in kernels:
+        wrapper = "stream_prefix" if k["name"] == "stream_prefix_clips" else k["name"]
+        k["phase_l_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_l.items()}
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:

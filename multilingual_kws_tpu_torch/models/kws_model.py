@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from .efficientnet import EfficientNet, EfficientNetB0
+from .efficientnet import EfficientNet
 
 EMBEDDING_DIM = 192
 
@@ -107,17 +107,19 @@ class KWSTransferModel(nn.Module):
 def make_transfer_model(num_categories: int = 3, device="cuda", **trunk_kw) -> KWSTransferModel:
     """Full-width EfficientNetB0 transfer model on ``device``, in eval mode,
     with PyTorch's default initialization (see ``seeded_init_``);
-    ``trunk_kw`` go to the trunk (e.g. ``compute_dtype="bfloat16"``)."""
+    ``trunk_kw`` go to the trunk (e.g. ``compute_dtype="bfloat16"``, or
+    ``width_coefficient`` and ``depth_coefficient`` for a narrower one)."""
     dev = resolve_device(device)
-    return KWSTransferModel(EfficientNetB0(**trunk_kw), num_categories).to(dev).eval()
+    return KWSTransferModel(EfficientNet(**trunk_kw), num_categories).to(dev).eval()
 
 
 def make_embedding_model(num_labels: int, device="cuda", **trunk_kw) -> KWSEmbeddingModel:
     """Full-width EfficientNetB0 embedding model (``num_labels`` logits) on
     ``device``, in eval mode, with PyTorch's default initialization
-    (pretraining starts from ``lecun_init_``, Flax's)."""
+    (pretraining starts from ``lecun_init_``, Flax's); ``trunk_kw`` go to
+    the trunk, as for ``make_transfer_model``."""
     dev = resolve_device(device)
-    return KWSEmbeddingModel(num_labels, EfficientNetB0(**trunk_kw)).to(dev).eval()
+    return KWSEmbeddingModel(num_labels, EfficientNet(**trunk_kw)).to(dev).eval()
 
 
 def transfer_params_from_embedding(embedding_state, transfer_state):

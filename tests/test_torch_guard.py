@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from multilingual_kws_tpu_torch import bench, graft_entry
 from multilingual_kws_tpu_torch.analysis import batch_jobs, distance_filtering, model_analysis, per_speaker, sweeps
 from multilingual_kws_tpu_torch.api import cli
 from multilingual_kws_tpu_torch.data import dataset
+from multilingual_kws_tpu_torch.examples import case_study, synth, tutorial
 from multilingual_kws_tpu_torch.models import dscnn, export_tf, import_tf, kws_model, wav2vec2_embed
 from multilingual_kws_tpu_torch.ops import micro_torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates
@@ -33,7 +35,7 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "multilingual_kws_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "gate_drift.py"]
 
 
 def _imported_roots(path: Path):
@@ -120,6 +122,14 @@ ENTRY_POINTS = {
     "per_speaker_eval": lambda: per_speaker.per_speaker_eval("x", {}, [], None),
     "DSCNN": lambda: dscnn.DSCNN(3),
     "Wav2Vec2Embedder": lambda: wav2vec2_embed.Wav2Vec2Embedder(model=object(), extractor=object()),
+    "bench_main": lambda: bench.main([]),
+    "bench_extra": lambda: bench.main(["--extra"]),
+    "bench_preflight": lambda: bench.preflight_bit_exact_on_chip(8),
+    "graft_entry": lambda: graft_entry.entry(),
+    "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),
+    "run_tutorial": lambda: tutorial.run_tutorial(Path("no_such_dir")),
+    "case_study": lambda: case_study.main(["--workdir", "no_such_dir"]),
+    "tiny_transfer_model": lambda: synth.tiny_transfer_model(),
 }
 
 
@@ -163,7 +173,8 @@ def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("entry", [dscnn.DSCNN, wav2vec2_embed.Wav2Vec2Embedder, steps.make_finetune_epoch_scan,
-                                   pretrain.build_fused_resident_epoch], ids=lambda e: e.__name__)
+                                   pretrain.build_fused_resident_epoch, bench.main, graft_entry.entry,
+                                   graft_entry.dryrun_multichip, tutorial.run_tutorial], ids=lambda e: e.__name__)
 def test_new_model_entry_points_default_to_the_card(entry):
     import inspect
 
