@@ -190,6 +190,22 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       full_size=True)`` over NCCL (its four lines); and
       ``examples/tutorial.run_tutorial`` at full width. Each path's launches
       by kernel go into the kernels line (``phase_l_launches``).
+  (m) the inference programs as CUDA graphs (``train/graphs.ProgramGraphs``,
+      one graph per input shape after one eager call): the stream's
+      batch-2048 predict at float32 and bf16, realtime predicts of 1, 5 and
+      25 windows, ``FinetuneResult.predict_fn`` and ``make_embedding_fn`` on
+      (e)'s model with host arrays, and the bench's headline step (B1 and
+      the B0 in one graph) at float32 and bf16. For each: graphed == eager,
+      bitwise, on the key's eager call, its capture and a replay; the first
+      replay's output unchanged after a second replay on other inputs; an
+      in-place change of the stem's weight moves the output with no
+      capture, a swap of its storage recaptures; captures, replays and the
+      memory pools printed. Realtime detections through the graphed predict
+      == the eager predict's at 20, 100 and 500 ms feeds, the stream's rows
+      == at both dtypes. Then graphed against eager in turns (M_TURNS
+      each): the headline's clips/s, realtime feed p50 / p99, the stream's
+      windows/s. Each graphed path's launches by kernel go into the kernels
+      line (``phase_m_launches``: graph replays count).
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
@@ -1930,6 +1946,16 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def bf16_copy(torch, model):
+    """A copy of a port model whose trunk computes in bfloat16 (its tensors
+    stay float32)."""
+    import copy
+
+    m16 = copy.deepcopy(model)
+    m16.trunk.compute_dtype = torch.bfloat16
+    return m16
+
+
 def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli_paths, work: Path):
     """Phase i: embedding pretraining on the card under an NCCL process
     group of one rank (the data-parallel path: the gradient all-reduce,
@@ -1938,8 +1964,6 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
     bf16 fine-tune beside phase e's. Returns the float32 pretraining epoch
     (for ``--profile``), which runs in the process group: the caller leaves
     the group after it."""
-    import copy
-
     import torch.distributed as dist
 
     from multilingual_kws_tpu_torch.api import cli
@@ -2179,9 +2203,7 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
     gt_rows = [(lab, float(ms)) for lab, ms in (ln.split(", ") for ln in Path(cli_paths["gt"]).read_text().splitlines())]
 
     def bf16_of(m):
-        m16 = copy.deepcopy(m)
-        m16.trunk.compute_dtype = torch.bfloat16
-        return m16
+        return bf16_copy(torch, m)
 
     def stream(m):
         sync()
@@ -3011,6 +3033,242 @@ def bench_phase(torch, work: Path):
     return launches
 
 
+M_TURNS = 5  # phase m: graphed and eager timings, in turns, each side this many times
+M_CHUNKS_MS = (20, 100, 500)  # phase m: realtime feeds of 1, 5 and 25 windows
+M_FEEDS = 50  # phase m: timed realtime feeds a turn and chunk size
+M_HEADLINE_ITERS = 12  # phase m: chained headline calls a turn (the bench's least)
+M_SECONDS = 10  # phase m: realtime detections graphed against eager on the stream's first seconds
+M_STEM = "trunk.stem.conv.weight"  # phase m: the weight moved in place and swapped
+
+
+def graph_phase(torch, fe, stream_model, ft_model, wave, work: Path):
+    """Phase m: the inference programs as CUDA graphs (``train/graphs.ProgramGraphs``)
+    on the card. For each program of the list below: graphed == eager
+    (bitwise) on the key's eager call, its capture and a replay; two
+    replays on different inputs leave the first output unchanged; an
+    in-place change of the stem's weight moves the output (same key, no
+    capture) and a swap of its storage recaptures; the captures, replays
+    and the program's memory pool are printed. Then graphed against eager
+    in turns: the bench's headline (clips/s, f32 and bf16), realtime feeds
+    of 20, 100 and 500 ms (p50 / p99 of the feeds' walls) and the stream
+    (windows/s, f32 and bf16). Returns each graphed path's launches by
+    kernel wrapper, the counts set to 0 just before it."""
+    from multilingual_kws_tpu_torch import bench
+    from multilingual_kws_tpu_torch.analysis.distance_filtering import make_embedding_fn
+    from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy, model_predict_fn
+    from multilingual_kws_tpu_torch.stream.realtime import RealtimeDetector
+    from multilingual_kws_tpu_torch.train import graphs
+    from multilingual_kws_tpu_torch.train.finetune import FinetuneResult
+    from multilingual_kws_tpu_torch.utils.wav import write_wav
+
+    t_phase = time.perf_counter()
+    dev = fe.device
+    sync = torch.cuda.synchronize
+    rng = np.random.default_rng(12)
+    i16 = np.clip(np.trunc(wave * 32768.0), -32768, 32767).astype(np.int16)
+    windows = fe.stream_features(torch.from_numpy(i16[: SR + (2 * BATCH - 1) * 320]).to(dev), 2 * BATCH)[..., None]
+
+    stream16 = bf16_copy(torch, stream_model)
+    head = {dtype: bench.embedding_model(dtype, dev) for dtype in ("float32", "bfloat16")}
+    audio = torch.from_numpy(rng.normal(0, 0.1, (BATCH, SR)).astype(np.float32).clip(-1, 1)).to(dev)
+    zero = torch.zeros((), device=dev)
+    step = {dtype: bench.headline_step(fe, m) for dtype, m in head.items()}
+    predict_ft = FinetuneResult("m", ft_model, {}, None).predict_fn()
+    embed_ft = make_embedding_fn(ft_model)
+
+    def prog(m, method=graphs.eval_forward):
+        return graphs.module_program(m, method)
+
+    def to_tensor(x):
+        return torch.as_tensor(x, device=dev)
+
+    # name: (graphed call, the eager body on the same arguments, its program,
+    # the model whose stem moves, two argument tuples)
+    cases = {
+        f"stream f32, batch {BATCH}": (model_predict_fn(stream_model), lambda x: graphs.eval_forward(stream_model, x),
+                                   prog(stream_model), stream_model, (windows[:BATCH],), (windows[BATCH:],)),
+        f"stream bf16, batch {BATCH}": (model_predict_fn(stream16), lambda x: graphs.eval_forward(stream16, x),
+                                    prog(stream16), stream16, (windows[:BATCH],), (windows[BATCH:],)),
+        "FinetuneResult.predict_fn, 64 host arrays": (
+            predict_ft, lambda x: graphs.eval_forward(ft_model, to_tensor(x)), prog(ft_model), ft_model,
+            (windows[:64].cpu().numpy(),), (windows[64:128].cpu().numpy(),)),
+        "make_embedding_fn, 64 host arrays": (
+            embed_ft, lambda x: graphs.eval_embed(ft_model, to_tensor(x)).float().cpu().numpy(),
+            prog(ft_model, graphs.eval_embed), ft_model,
+            (windows[:64].cpu().numpy(),), (windows[64:128].cpu().numpy(),)),
+    }
+    for n in (1, 5, 25):
+        cases[f"realtime predict, {n} windows"] = (
+            model_predict_fn(ft_model), lambda x: graphs.eval_forward(ft_model, x), prog(ft_model), ft_model,
+            (windows[:n],), (windows[n : 2 * n],))
+    for dtype, m in head.items():
+        cases[f"bench headline {dtype}, batch {BATCH}"] = (step[dtype], step[dtype].fn, step[dtype], m,
+                                                        (audio, zero), (audio * 0.5, zero + 1e-3))
+
+    def same(a, b):
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        return a.shape == b.shape and torch.equal(a, b)
+
+    def err(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max()) if isinstance(a, np.ndarray) else \
+            float((a.float() - b.float()).abs().max())
+
+    lines = []
+    for name, (call, eager, program, model, xa, xb) in cases.items():
+        stem = model.get_parameter(M_STEM)
+        stem.data = stem.data.clone()  # new storage: a key of this case's own, whatever ran before
+        captures0, eager0 = program.captures, program.eager_calls
+        want_a = eager(*xa)
+        outs = [call(*xa) for _ in range(3)]  # the key's eager call, its capture, a replay
+        sync()
+        errs = [err(o, want_a) for o in outs]
+        check(all(same(o, want_a) for o in outs), f"phase m: {name}: graphed != eager: max |delta| {errs}")
+        check(program.captures == captures0 + 1 and program.eager_calls == eager0 + 1,
+              f"phase m: {name}: {program.eager_calls - eager0} eager calls and {program.captures - captures0} "
+              "captures in a new key's first three calls")
+        kept = outs[-1].copy() if isinstance(outs[-1], np.ndarray) else outs[-1].clone()
+        first, second = call(*xa), call(*xb)
+        sync()
+        check(same(first, kept) and same(second, eager(*xb)) and not same(second, first),
+              f"phase m: {name}: a second replay on other inputs changed the first output or is wrong")
+        captured = program.captures
+        with torch.no_grad():
+            saved = stem.detach().clone()
+            stem.mul_(1.25)
+            moved = call(*xa)
+            moved_ok = same(moved, eager(*xa)) and not same(moved, first)
+            stem.copy_(saved)
+        sync()
+        check(moved_ok and program.captures == captured,
+              f"phase m: {name}: an in-place weight change did not move the output ({moved_ok}), or recaptured "
+              f"({program.captures - captured} captures)")
+        stem.data = stem.data.clone()  # new storage: a new key, its eager call, then a capture
+        swapped = [call(*xa) for _ in range(2)]
+        sync()
+        check(all(same(o, want_a) for o in swapped) and program.captures == captured + 1,
+              f"phase m: {name}: after a storage swap {program.captures - captured} captures, outputs "
+              f"{[err(o, want_a) for o in swapped]}")
+        lines.append(f"{name}: graphed == eager (eager call, capture, replay); the first replay's output kept "
+                     f"through a second on other inputs; stem x1.25 in place moved it with no capture; a storage "
+                     f"swap recaptured; program captures {program.captures}, replays {program.replays}, eager "
+                     f"calls {program.eager_calls}, capture {program.capture_s:.3f} s in all")
+    pools = {name: program.pool_bytes() for name, program in (
+        ("stream f32", prog(stream_model)), ("stream bf16", prog(stream16)), ("phase e's predict", prog(ft_model)),
+        ("phase e's embedding", prog(ft_model, graphs.eval_embed)), ("headline f32", step["float32"]),
+        ("headline bf16", step["bfloat16"]))}
+    for line in lines:
+        print(f"phase m: {line}")
+    print("phase m: memory pools (MiB, allocator snapshot): " + ", ".join(
+        f"{k} {v / 2**20:.1f}" if v is not None else f"{k} not measured" for k, v in pools.items()))
+    del windows, cases
+
+    launches = {}
+
+    # the bench's headline, graphed against eager in turns
+    def chained(fn, iters=M_HEADLINE_ITERS):
+        e = zero
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            e = fn(audio, e)
+        sync()
+        return BATCH * iters / (time.perf_counter() - t0)
+
+    rates = {}
+    for dtype, graphed in step.items():
+        for fn in (graphed, graphed.fn):
+            chained(fn, 3)
+        _, launches[f"headline_{dtype}"] = phase_launches(torch, lambda: chained(graphed))
+        rates[dtype] = {"graphed": [], "eager": []}
+        for turn in range(M_TURNS):
+            for side in (("graphed", "eager") if turn % 2 == 0 else ("eager", "graphed")):
+                rates[dtype][side].append(chained(graphed if side == "graphed" else graphed.fn))
+    del step, head
+
+    # realtime feeds, graphed against eager in turns, on phase e's model
+    feed_ms = {}
+    eager_ft = lambda x: graphs.eval_forward(ft_model, x)  # noqa: E731
+
+    def feeds(chunk_ms, predict, walls):
+        det = RealtimeDetector("alpha", predict, detection_threshold=J_THRESHOLD, device=dev)
+        det.feed(wave[:SR])
+        chunk = chunk_ms * SR // 1000
+        out = []
+        for i in range(M_FEEDS + 2):
+            sync()
+            t0 = time.perf_counter()
+            got = det.feed(wave[SR + i * chunk : SR + (i + 1) * chunk])
+            sync()
+            if i >= 2:  # two warm feeds: the program's eager call and its capture at the feed's batch
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out.extend((d.time_ms, d.confidence) for d in got)
+        return out
+
+    def detect(chunk_ms, predict):
+        det = RealtimeDetector("alpha", predict, detection_threshold=J_THRESHOLD, device=dev)
+        step_n = chunk_ms * SR // 1000
+        gate = wave[: M_SECONDS * SR]
+        return [(d.time_ms, d.confidence) for i in range(0, len(gate), step_n) for d in det.feed(gate[i : i + step_n])]
+
+    for chunk_ms in M_CHUNKS_MS:
+        runs = {"eager": detect(chunk_ms, eager_ft)}
+        runs["graphed"], launches[f"realtime_{chunk_ms}ms"] = phase_launches(torch, lambda: detect(chunk_ms, ft_model))
+        check(runs["graphed"] == runs["eager"],
+              f"phase m: realtime at {chunk_ms} ms: graphed detections {runs['graphed']} != eager {runs['eager']}")
+        feed_ms[chunk_ms] = {"graphed": [], "eager": [], "detections": len(runs["graphed"])}
+        for turn in range(M_TURNS):
+            for side in (("graphed", "eager") if turn % 2 == 0 else ("eager", "graphed")):
+                feeds(chunk_ms, ft_model if side == "graphed" else eager_ft, feed_ms[chunk_ms][side])
+
+    # the stream, graphed against eager in turns, f32 and bf16
+    wav, gt = work / "m_stream.wav", work / "m_labels.txt"
+    write_wav(wav, wave, SR)
+    gt.write_text("")
+    flags = [StreamFlags(wav=str(wav), ground_truth=str(gt), target_keyword="alpha", detection_thresholds=[0.5])]
+    n_w = -(-(len(wave) - SR) // 320)
+    wps = {}
+    for dtype, m in (("float32", stream_model), ("bfloat16", stream16)):
+        sides = {"graphed": model_predict_fn(m), "eager": lambda x, m=m: graphs.eval_forward(m, x)}
+        rows = {}
+        for side, predict in sides.items():
+            if side == "graphed":
+                _, launches[f"stream_{dtype}"] = phase_launches(torch, lambda: calculate_streaming_accuracy(
+                    predict, flags, batch_size=BATCH, verbose=False, device=dev))
+            rows[side] = calculate_streaming_accuracy(predict, flags, batch_size=BATCH, verbose=False, device=dev)[1]
+        check(np.array_equal(rows["graphed"], rows["eager"]),
+              f"phase m: stream {dtype}: graphed rows != eager: {float(np.abs(rows['graphed'] - rows['eager']).max())}")
+        wps[dtype] = {"graphed": [], "eager": []}
+        for turn in range(M_TURNS):
+            for side in (("graphed", "eager") if turn % 2 == 0 else ("eager", "graphed")):
+                sync()
+                t0 = time.perf_counter()
+                calculate_streaming_accuracy(sides[side], flags, batch_size=BATCH, verbose=False, device=dev)
+                sync()
+                wps[dtype][side].append(n_w / (time.perf_counter() - t0))
+    del stream16
+
+    def spread(v):
+        v = np.asarray(v)
+        return f"median {np.median(v):.1f} ({v.min():.1f}-{v.max():.1f})"
+
+    for dtype, r in rates.items():
+        print(f"phase m: headline {dtype} clips/s over {M_TURNS} turns of {M_HEADLINE_ITERS} chained calls at batch "
+              f"{BATCH}: graphed {spread(r['graphed'])}, eager {spread(r['eager'])}; graphed {r['graphed']}, "
+              f"eager {r['eager']}")
+    for chunk_ms, f in feed_ms.items():
+        desc = "; ".join(f"{side} p50 {np.percentile(f[side], 50):.3f} p99 {np.percentile(f[side], 99):.3f}"
+                         for side in ("graphed", "eager"))
+        print(f"phase m: realtime {chunk_ms} ms feeds ({chunk_ms // 20} windows), ms a feed over {M_TURNS} x {M_FEEDS} "
+              f"feeds: {desc}; graphed detections == eager ({f['detections']} in {M_SECONDS} s)")
+    for dtype, w in wps.items():
+        print(f"phase m: stream {dtype} windows/s ({n_w} windows, batch {BATCH}) over {M_TURNS} turns: graphed "
+              f"{spread(w['graphed'])}, eager {spread(w['eager'])}; graphed rows == eager")
+    print(f"phase m: launches by path {launches}")
+    print(f"phase m: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3287,9 +3545,12 @@ def main() -> int:
     dscnn_phase(torch, fe, corpus, wave, labels, Path(work.name), smi)
     # (l) the benchmark program, the graft entry points, the tutorial
     phase_l = bench_phase(torch, Path(work.name))
+    # (m) the inference programs as CUDA graphs
+    phase_m = graph_phase(torch, fe, model, ft_model, wave, Path(work.name))
     for k in kernels:
         wrapper = "stream_prefix" if k["name"] == "stream_prefix_clips" else k["name"]
         k["phase_l_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_l.items()}
+        k["phase_m_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_m.items()}
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:

@@ -23,19 +23,19 @@ import torch
 
 from .. import exact_float32, resolve_device
 from ..train.evaluate import featurize_files
+from ..train.graphs import eval_embed, serve
 
 
 def make_embedding_fn(model: torch.nn.Module) -> Callable:
     """(B, 49, 40, 1) specs (numpy or a tensor) -> (B, 192) float32 numpy
     embeddings, computed by ``model.embed`` in eval mode on the model's
-    device. ``model`` is a ``KWSEmbeddingModel`` or ``KWSTransferModel``."""
-    model.eval()
-    dev = next(model.parameters()).device
+    device: its embedding program (``train/graphs.serve``; on a card a
+    CUDA graph a batch shape, after one eager call, as the JAX package jits
+    it). ``model`` is a ``KWSEmbeddingModel`` or ``KWSTransferModel``."""
+    program = serve(model, eval_embed)
 
     def embed(specs) -> np.ndarray:
-        x = torch.as_tensor(specs, dtype=torch.float32).to(dev)
-        with torch.no_grad(), exact_float32():
-            return model.embed(x).float().cpu().numpy()
+        return program(torch.as_tensor(specs, dtype=torch.float32)).float().cpu().numpy()
 
     return embed
 

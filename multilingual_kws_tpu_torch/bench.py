@@ -76,7 +76,9 @@ def chained_time(step: Callable, x: torch.Tensor, target_s: float = 2.0) -> floa
     depends on the previous output through a negligible device scalar, so
     no call can be skipped or merged with another and the wall is the
     device's work. One warm-up call, a 4-iteration estimate, then as many
-    iterations as fill ``target_s`` (at least 12), ended by a synchronize."""
+    iterations as fill ``target_s`` (at least 12), ended by a synchronize.
+    A program's eager call and its capture fall in the warm-up and the
+    estimate, so the timed iterations are replays."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     step(x, zero)
     _sync(x.device)
@@ -235,10 +237,25 @@ def preflight_bit_exact_on_chip(n: int = 256, device="cuda") -> bool:
     return not failures
 
 
+def headline_step(fe, model) -> Callable:
+    """The headline's step ``(audio, eps) -> eps``: the exact frontend (B1)
+    and the model on ``audio + eps``, one program (``train/graphs.ProgramGraphs``:
+    on a card a CUDA graph, as the JAX package jits its step)."""
+    from .train.graphs import ProgramGraphs
+
+    def step(a, eps):
+        with torch.inference_mode(), exact_float32():
+            out = model(fe.features(a + eps)[..., None])
+            return torch.tanh(out.float().mean()) * 1e-30
+
+    return ProgramGraphs(step, [model])
+
+
 def measure_ours(batch: int = BATCH, num_labels: int = NUM_LABELS, target_s: float = 2.0, device="cuda"):
     """Clips/s of the exact frontend plus the embedding model (logits,
-    eval mode) on ``batch`` seeded clips, chained timing, in float32 and in
-    bf16 compute. Returns (the faster rate, its dtype, {dtype: rate})."""
+    eval mode) on ``batch`` seeded clips, chained timing of the headline
+    step, in float32 and in bf16 compute. Returns (the faster rate, its
+    dtype, {dtype: rate})."""
     from .ops.micro_torch import MicroFrontendTorch
 
     dev = resolve_device(device)
@@ -247,13 +264,7 @@ def measure_ours(batch: int = BATCH, num_labels: int = NUM_LABELS, target_s: flo
     detail = {}
     for dtype in ("float32", "bfloat16"):
         model = embedding_model(dtype, dev, num_labels)
-
-        def step(a, eps, model=model):
-            with torch.inference_mode(), exact_float32():
-                out = model(fe.features(a + eps)[..., None])
-            return torch.tanh(out.float().mean()) * 1e-30
-
-        detail[dtype] = batch / chained_time(step, audio, target_s)
+        detail[dtype] = batch / chained_time(headline_step(fe, model), audio, target_s)
         del model
     best = max(detail, key=detail.get)
     return detail[best], best, detail
@@ -333,8 +344,10 @@ def measure_decomposition(batch: int = BATCH, num_labels: int = NUM_LABELS, targ
                           device="cuda") -> List[Dict]:
     """The headline split: the frontend alone on ``batch`` clips, and the
     model alone on ``batch`` seeded feature windows in float32 and bf16,
-    each with its MFU against the card's peak for its dtype."""
+    each with its MFU against the card's peak for its dtype; each step one
+    program, as the headline's."""
     from .ops.micro_torch import MicroFrontendTorch
+    from .train.graphs import ProgramGraphs
 
     dev = resolve_device(device)
     fe = MicroFrontendTorch(device=dev)
@@ -345,7 +358,7 @@ def measure_decomposition(batch: int = BATCH, num_labels: int = NUM_LABELS, targ
     def fe_step(a, eps):
         return torch.tanh(fe.features(a + eps).mean()) * 1e-30
 
-    fe_clips = batch / chained_time(fe_step, audio, target_s)
+    fe_clips = batch / chained_time(ProgramGraphs(fe_step), audio, target_s)
     rates = {}
     flops = 0
     for dtype in ("float32", "bfloat16"):
@@ -355,7 +368,7 @@ def measure_decomposition(batch: int = BATCH, num_labels: int = NUM_LABELS, targ
             with torch.inference_mode(), exact_float32():
                 return torch.tanh(model(s + eps).float().mean()) * 1e-30
 
-        rates[dtype] = batch / chained_time(m_step, specs, target_s)
+        rates[dtype] = batch / chained_time(ProgramGraphs(m_step, [model]), specs, target_s)
         flops = flops or flops_per_clip(model)
         del model
     out = [{"metric": f"frontend only (bit-exact, clip_features kernel), chained bs {batch}",
@@ -434,7 +447,8 @@ def measure_realtime_latency(device="cuda", chunks_ms=(20, 100, 500), **trunk_kw
     """Online serving: the wall of one ``RealtimeDetector.feed`` (ring
     buffer, featurize, transfer-model softmax, detector) at several chunk
     sizes, median and p90 over max(10, 2000 / chunk) feeds after a 1 s
-    fill and one warm feed."""
+    fill and two warm feeds (the predict program's eager call and its
+    capture at the feed's batch)."""
     from .stream.realtime import RealtimeDetector
 
     dev = resolve_device(device)
@@ -446,6 +460,7 @@ def measure_realtime_latency(device="cuda", chunks_ms=(20, 100, 500), **trunk_kw
         det = RealtimeDetector("kw", model, device=dev)
         chunk = rng.normal(0, 0.1, 16 * chunk_ms).astype(np.float32)
         det.feed(rng.normal(0, 0.1, 16000).astype(np.float32))
+        det.feed(chunk)
         det.feed(chunk)
         times = []
         for _ in range(max(10, 2000 // chunk_ms)):

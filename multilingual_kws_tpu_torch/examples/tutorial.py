@@ -29,9 +29,8 @@ import argparse
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from .. import exact_float32, resolve_device
+from .. import resolve_device
 
 
 def make_synthetic_microset(workdir: Path):
@@ -56,8 +55,9 @@ def step_featurize(files, settings=None, device="cuda"):
 def step_embeddings(base_model_dir, clips_by_word, model=None, device="cuda"):
     """Cells 17-19: 192-d embedding vectors from the base model (the
     reference truncates the Keras model at "dense_2"; here the embedding is
-    the model's ``embed``). ``model``: the base model's architecture when it
-    is not the checkpoint's sized B0."""
+    the model's ``embed``, through its embedding program). ``model``: the
+    base model's architecture when it is not the checkpoint's sized B0."""
+    from ..analysis.distance_filtering import make_embedding_fn
     from ..models.kws_model import KWSEmbeddingModel
     from ..train import checkpoints as ckpt
     from ..train.evaluate import featurize_files
@@ -69,10 +69,9 @@ def step_embeddings(base_model_dir, clips_by_word, model=None, device="cuda"):
     model = model.to(dev).eval()
     model.load_state_dict(state, strict=True)
     words, vecs = [], []
+    embed = make_embedding_fn(model)
     for word, files in clips_by_word.items():
-        specs = torch.from_numpy(featurize_files(files, device=dev)[..., None]).to(dev)
-        with torch.inference_mode(), exact_float32():
-            vecs.append(model.embed(specs).cpu().numpy())
+        vecs.append(embed(featurize_files(files, device=dev)[..., None]))
         words.extend([word] * len(files))
     embeddings = np.concatenate(vecs)
     print(f"embeddings: {embeddings.shape} ({embeddings.shape[1]}-d, reference 'dense_2' output)")

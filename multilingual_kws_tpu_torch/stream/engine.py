@@ -8,7 +8,8 @@ equivalent of the reference's batch_streaming_analysis.py): ``StreamFlags``,
   windows share them (``MicroFrontendTorch.stream_features``); the windows
   stay on the device.
 - The model sees one batch shape: the last batch is zero-padded and its pad
-  rows' predictions are sliced off.
+  rows' predictions are sliced off. A model is served by its predict
+  program: on a card one CUDA graph, replayed for every batch.
 - The softmax rows come to the host in one pull (a ``predict_fn`` may
   return tensors or numpy arrays).
 - Audio is processed in chunks of at most ``max_chunk_length_sec``; chunks
@@ -26,10 +27,11 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import exact_float32, resolve_device
+from .. import resolve_device
 from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
 from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL
 from ..train.checkpoints import load_transfer_model
+from ..train.graphs import eval_forward, serve
 from ..utils.wav import read_wav
 from .detector import DetectorParams, detect_all_thresholds
 from .stats import StreamingAccuracyStats
@@ -118,7 +120,9 @@ def featurize_stream(
 def _predict_batches(predict_fn, windows: torch.Tensor, batch_size: int) -> list:
     """predict_fn over (n, F, C) windows in batches of ONE shape
     (batch_size, F, C, 1): the last batch is zero-padded and the pad rows'
-    predictions are sliced off (the model is row-independent in eval mode)."""
+    predictions are sliced off (the model is row-independent in eval mode).
+    A predict program copies each batch into its graph's input, so one graph
+    serves every offset (the JAX engine's ``_batch_slicer``)."""
     preds = []
     n_w = int(windows.shape[0])
     for i in range(0, n_w, batch_size):
@@ -132,14 +136,12 @@ def _predict_batches(predict_fn, windows: torch.Tensor, batch_size: int) -> list
 
 def model_predict_fn(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
     """(B, 49, 40, 1) -> (B, 3) softmax through an eval-mode model (float32
-    computes in float32: ``exact_float32``)."""
-    model.eval()
-
-    def predict(specs: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode(), exact_float32():
-            return model(specs)
-
-    return predict
+    computes in float32: ``exact_float32``) through the model's predict
+    program (``train/graphs.serve``, one program per model, as the JAX
+    package's ``_cached_predict``). On a card each batch shape runs eagerly
+    once, then replays one CUDA graph; call the model itself for eager
+    calls."""
+    return serve(model, eval_forward)
 
 
 def calculate_streaming_accuracy(

@@ -38,7 +38,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import exact_float32, resolve_device
+from .. import resolve_device
 from ..data.dataset import AudioDataset
 from ..models.convert import flax_to_state_dict
 from ..models.efficientnet import as_dtype
@@ -46,6 +46,7 @@ from ..models.kws_model import KWSTransferModel, lecun_init_
 from ..ops.augment import SpecAugParams
 from ..settings import ModelSettings, standard_microspeech_model_settings
 from . import checkpoints as ckpt
+from .graphs import eval_forward, serve
 from .metrics import CSVLogger
 from .steps import calibrate_batch_stats, make_finetune_epoch_scan, make_finetune_step
 
@@ -88,14 +89,14 @@ class FinetuneResult:
         """(B, 49, 40, 1) float32 (a tensor, or numpy) -> (B, 3) softmax
         tensor on the model's device; it takes the form the streaming engine
         (``stream.engine.calculate_streaming_accuracy``) and
-        ``train/evaluate.py`` pass."""
-        model = self.model.eval()
-        dev = next(model.parameters()).device
+        ``train/evaluate.py`` pass. It serves the model's predict program
+        (``train/graphs.serve``; the program is cached on the model, so
+        every call of this method shares it): on a card a CUDA graph a batch
+        shape, a host array uploaded straight into its input."""
+        program = serve(self.model, eval_forward)
 
         def predict(specs) -> torch.Tensor:
-            x = torch.as_tensor(specs, dtype=torch.float32).to(dev)
-            with torch.inference_mode(), exact_float32():
-                return model(x)
+            return program(torch.as_tensor(specs, dtype=torch.float32))
 
         return predict
 

@@ -1,5 +1,5 @@
-"""A resident training epoch as a CUDA graph: one step captured, then
-replayed once a step.
+"""CUDA graphs of the port's device programs: a resident training epoch
+(``EpochGraph``) and the inference programs (``ProgramGraphs``).
 
 The JAX package runs a resident epoch (bank gather, augment, featurize,
 step) as one scanned XLA program (``train/steps.make_finetune_epoch_scan``,
@@ -43,15 +43,29 @@ accumulation to the stream it was made on; if that is the default stream,
 the capture fails, and raises.
 
 On the CPU the same step runs as a plain Python loop, counter and all.
+
+The JAX package's inference entry points are ``jax.jit`` programs compiled
+once per input shape (``train/finetune._cached_predict``, the engine's
+predict, ``analysis/distance_filtering.make_embedding_fn``, the bench's
+steps). ``ProgramGraphs`` is their counterpart: one CUDA graph per key
+(the tensor arguments' shapes, dtypes and devices, and the addresses of the
+modules' parameters and buffers), captured on the key's second call, after
+one eager call, and replayed from then on; ``module_program`` caches one per
+module and method, as ``_cached_predict`` caches one per model, and
+``serve`` gives the callable that the entry points return.
 """
 
 from __future__ import annotations
 
+import functools
 import time
+import weakref
+from collections import OrderedDict
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import exact_float32
 from ..ops import _build
 
 # eager steps before the capture; one makes every lazy allocation and
@@ -145,13 +159,7 @@ class EpochGraph:
         if self.graph is None:
             n = min(steps, max(0, WARMUP_STEPS - self.eager_steps))
             if n:
-                current = torch.cuda.current_stream(self.device)
-                side = torch.cuda.Stream(self.device)
-                side.wait_stream(current)
-                with torch.cuda.stream(side):
-                    for _ in range(n):
-                        self._one_step()
-                current.wait_stream(side)
+                on_side_stream(self.device, lambda: [self._one_step() for _ in range(n)])
                 self.eager_steps += n
                 done = n
             if done == steps:
@@ -160,21 +168,274 @@ class EpochGraph:
         for _ in range(steps - done):
             self.graph.replay()
         self.replays += steps - done
-        for wrapper, n in self.per_replay.items():
-            wrapper.launches += n * (steps - done)
+        count_replays(self.per_replay, steps - done)
 
     def _capture(self):
         """Capture one step (it does not run: the first replay takes it)."""
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        before = {w: w.captured for w in _build.WRAPPERS}
-        t0 = time.perf_counter()
-        # thread_local: another thread's CUDA calls (NCCL's watchdog, a
-        # prefetch thread) do not invalidate the capture
-        with torch.cuda.device(self.device), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._one_step()
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-        self.per_replay = {w: w.captured - n for w, n in before.items() if w.captured != n}
-        self.graph = graph
+        self.graph, _, self.per_replay, self.capture_s = capture(self._one_step, self.device,
+                                                                 generators=self.generators)
+
+
+def on_side_stream(device: torch.device, run: Callable):
+    """``run()`` on a side stream that waits for the current stream, which
+    then waits for it: the eager warm-up before a capture (PyTorch's CUDA
+    graph notes), whose one-off allocations and set-up stay off the stream
+    that later replays."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = run()
+    current.wait_stream(side)
+    return out
+
+
+def capture(run: Callable, device: torch.device, pool=None, generators: Sequence[torch.Generator] = ()):
+    """(graph, what ``run()`` returned, {kernel wrapper: launches one replay
+    adds}, the capture's seconds): ``run`` captured as a CUDA graph on
+    ``device``, in ``pool`` (a ``torch.cuda.graph_pool_handle()``; None: a
+    pool of its own), with ``generators`` registered. A captured call does
+    not run: the first replay runs it."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = {w: w.captured for w in _build.WRAPPERS}
+    t0 = time.perf_counter()
+    # thread_local: another thread's CUDA calls (NCCL's watchdog, a
+    # prefetch thread) do not invalidate the capture
+    with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = run()
+    torch.cuda.synchronize(device)
+    per_replay = {w: w.captured - n for w, n in before.items() if w.captured != n}
+    return graph, out, per_replay, time.perf_counter() - t0
+
+
+def count_replays(per_replay: Dict[Callable, int], replays: int) -> None:
+    """Add ``replays`` replays' captured launches to each wrapper's
+    ``launches``."""
+    for wrapper, n in per_replay.items():
+        wrapper.launches += n * replays
+
+
+# keys a program keeps, dropped least recently used first: the JAX
+# package's ``lru_cache(maxsize=8)`` of jitted predicts
+MAX_SHAPES = 8
+
+
+class _Graphed:
+    """One key's program: no graph after its eager call; then the graph,
+    its static inputs and outputs, and the launches one replay adds."""
+
+    __slots__ = ("graph", "inputs", "outputs", "per_replay")
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self.outputs = None
+        self.per_replay: Dict[Callable, int] = {}
+
+
+def _weights(module: torch.nn.Module, into: list) -> list:
+    """Append the training flag and the parameters' and buffers' addresses
+    of ``module`` and its submodules to ``into``."""
+    into.append(module.training)
+    into.extend(0 if t is None else t.data_ptr() for t in module._parameters.values())
+    into.extend(0 if t is None else t.data_ptr() for t in module._buffers.values())
+    for child in module._modules.values():
+        if child is not None:
+            _weights(child, into)
+    return into
+
+
+class ProgramGraphs:
+    """``program(*tensors)``: ``fn(*tensors)``, on a card as one CUDA graph
+    per key, the way ``jax.jit`` keeps one executable per input shape.
+
+    fn: tensors -> a tensor or a tuple of tensors, on the device, with no
+    host sync and no shape-dependent branch it does not take again for the
+    same shapes. modules: the ``nn.Module``s whose weights ``fn`` reads
+    (held by weak references: the program does not keep them alive).
+
+    - The key is the tensor arguments' shapes, dtypes and devices, and the
+      training flag and ``data_ptr()`` of every parameter and buffer of
+      ``modules``. An in-place update (an optimizer step, ``copy_``,
+      ``load_state_dict``) keeps the key, and the replay reads the new
+      weights; new storage (``.to()``, ``load_state_dict(assign=True)``, a
+      swap of ``.data``) gives a new key and drops the old weights' graphs,
+      so a graph never replays against storage that was freed.
+    - A key's first call runs eagerly, on a side stream: the warm-up
+      (cuDNN's choice of algorithm, the kernels' lazy build, the frontend's
+      tables), so a shape seen once never pays for a capture. The second
+      captures, in one private memory pool that the program's graphs share,
+      and replays; later calls copy their arguments into the graph's static
+      inputs (from any device: a host array is uploaded into them) and
+      replay. The outputs are fresh tensors, cloned out of the graph's
+      memory before the next replay can overwrite it; replays run in turn
+      on the current stream.
+    - At most ``max_shapes`` keys are kept, dropped least recently used
+      first.
+    - Launches of a kernel wrapper inside the capture count in its
+      ``captured``; each replay adds them to its ``launches``.
+    - There is no fallback: on a card a capture or a replay that fails
+      raises.
+
+    The program runs on its modules' device (without parameters: its first
+    argument's). On the CPU there is no graph: every call is ``fn``, and the
+    keys and their order are kept as on a card. ``eager_calls``,
+    ``captures``, ``replays`` and ``capture_s`` (seconds, summed) say how
+    the calls ran."""
+
+    def __init__(self, fn: Callable, modules: Sequence[torch.nn.Module] = (), max_shapes: int = MAX_SHAPES):
+        self.fn = fn
+        self._modules = [weakref.ref(m) for m in modules]
+        self.max_shapes = max_shapes
+        self._graphed: "OrderedDict[tuple, _Graphed]" = OrderedDict()
+        self._pool = None
+        self.eager_calls = 0
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def _live_modules(self):
+        mods = [ref() for ref in self._modules]
+        if any(m is None for m in mods):
+            raise RuntimeError("a module of this program has been freed")
+        return mods
+
+    def key(self, *args: torch.Tensor) -> tuple:
+        """The key a call on ``args`` runs under."""
+        weights = []
+        for m in self._live_modules():
+            _weights(m, weights)
+        return tuple((tuple(a.shape), a.dtype, a.device) for a in args), tuple(weights)
+
+    def keys(self):
+        """The kept keys, least recently used first."""
+        return list(self._graphed)
+
+    def device(self, *args: torch.Tensor) -> torch.device:
+        """Where a call on ``args`` runs: the modules' device, else the first
+        argument's."""
+        for m in self._live_modules():
+            for p in m.parameters():
+                return resolved_device(p.device)
+        return resolved_device(args[0].device)
+
+    def __call__(self, *args: torch.Tensor):
+        dev = self.device(*args)
+        key = self.key(*args)
+        prog = self._graphed.get(key)
+        if prog is None or dev.type != "cuda":
+            out = self._eager(dev, args)
+            self._keep(key)
+            return out
+        self._graphed.move_to_end(key)
+        if prog.graph is None:
+            self._capture(prog, args, dev)
+        for buf, a in zip(prog.inputs, args):
+            buf.copy_(a)
+        prog.graph.replay()
+        self.replays += 1
+        count_replays(prog.per_replay, 1)
+        if isinstance(prog.outputs, torch.Tensor):
+            return prog.outputs.clone()
+        return type(prog.outputs)(t.clone() for t in prog.outputs)
+
+    def _eager(self, dev: torch.device, args):
+        self.eager_calls += 1
+        if dev.type != "cuda":
+            return self.fn(*(a.to(dev) for a in args))
+        out = on_side_stream(dev, lambda: self.fn(*(a.to(dev) for a in args)))
+        current = torch.cuda.current_stream(dev)
+        for t in (out,) if isinstance(out, torch.Tensor) else out:
+            t.record_stream(current)  # made on the side stream, read on this one
+        return out
+
+    def _keep(self, key: tuple) -> None:
+        """Make ``key`` the most recently used; drop the graphs of other
+        weights (their storage may be gone) and the least recently used
+        beyond ``max_shapes``."""
+        if key in self._graphed:
+            self._graphed.move_to_end(key)
+            return
+        for old in [k for k in self._graphed if k[1] != key[1]]:
+            del self._graphed[old]
+        self._graphed[key] = _Graphed()
+        while len(self._graphed) > self.max_shapes:
+            self._graphed.popitem(last=False)
+
+    def _capture(self, prog: _Graphed, args, dev: torch.device) -> None:
+        with torch.inference_mode(False):  # static inputs take copies whatever mode a later call is in
+            prog.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=dev) for a in args)
+        if not any(g.graph is not None for g in self._graphed.values()):
+            # a pool lives while a graph uses it: with none left, a new one
+            self._pool = torch.cuda.graph_pool_handle()
+        prog.graph, prog.outputs, prog.per_replay, seconds = capture(lambda: self.fn(*prog.inputs), dev,
+                                                                     pool=self._pool)
+        self.captures += 1
+        self.capture_s += seconds
+
+    def pool_bytes(self) -> Optional[int]:
+        """Device bytes the program's memory pool holds (its graphs'
+        intermediates and outputs), from the allocator's snapshot; None
+        before a capture, or if the snapshot does not name pools."""
+        if self._pool is None:
+            return None
+        segments = torch.cuda.memory_snapshot()
+        if any("segment_pool_id" not in s for s in segments):
+            return None
+        return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == tuple(self._pool))
+
+
+class _ProgramCache(dict):
+    """The programs cached on a module. A copy of the module
+    (``copy.deepcopy``, pickling) starts with none: a program serves the
+    module it was made for."""
+
+    def __deepcopy__(self, memo):
+        return _ProgramCache()
+
+    def __reduce__(self):
+        return _ProgramCache, ()
+
+
+def module_program(module: torch.nn.Module, method: Callable) -> ProgramGraphs:
+    """The ``ProgramGraphs`` of ``method(module, *tensors)``, one per module
+    and method, cached on the module (as the JAX package's ``lru_cache``
+    keeps one jitted predict per model). It reaches the module through a
+    weak reference, so the cache makes no cycle: the module's graphs and
+    their pool go with it."""
+    cache = module.__dict__.setdefault("_inference_programs", _ProgramCache())
+    prog = cache.get(method)
+    if prog is None:
+        ref = weakref.ref(module)
+        prog = cache[method] = ProgramGraphs(lambda *xs: method(ref(), *xs), [module])
+    return prog
+
+
+def _run_program(module: torch.nn.Module, method: Callable, *args: torch.Tensor):
+    return module_program(module, method)(*args)
+
+
+def serve(module: torch.nn.Module, method: Callable) -> Callable:
+    """``(*tensors) -> method(module, *tensors)`` through the module's
+    program (``module_program``), the module put in eval mode; the callable
+    keeps the module alive, as a jitted predict keeps its variables. On a
+    card each input shape replays one CUDA graph after one eager call; call
+    the module itself for eager calls."""
+    return functools.partial(_run_program, module.eval(), method)
+
+
+def eval_forward(model: torch.nn.Module, specs: torch.Tensor) -> torch.Tensor:
+    """The predict programs' body: the model's forward in inference mode,
+    float32 computing in float32 (``exact_float32``, so a capture chooses
+    the eager call's algorithms)."""
+    with torch.inference_mode(), exact_float32():
+        return model(specs)
+
+
+def eval_embed(model: torch.nn.Module, specs: torch.Tensor) -> torch.Tensor:
+    """The embedding programs' body: ``model.embed`` as ``eval_forward``
+    runs the forward."""
+    with torch.inference_mode(), exact_float32():
+        return model.embed(specs)
