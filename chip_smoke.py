@@ -206,6 +206,25 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       each): the headline's clips/s, realtime feed p50 / p99, the stream's
       windows/s. Each graphed path's launches by kernel go into the kernels
       line (``phase_m_launches``: graph replays count).
+  (n) the per-step programs as CUDA graphs (``train/graphs.ProgramGraphs``
+      with an optimizer and generators), under phase i's NCCL group and
+      deterministic cuDNN, each graphed against a twin run eagerly under
+      ``graphs.disable_graphs`` (the same calls, seeds and draws), bitwise:
+      N_STEPS streaming-pipeline pretraining steps at full width and batch
+      64, f32 and bf16 (the transform and step programs; every step's
+      metrics, the model, Adam's state, both generators), the
+      ``scan_epoch=False`` fused resident step, ``pretrain(resident_data=
+      False)`` (history, model, generator), ``transfer_learn(resident=
+      False)`` from a fresh B0 (history, model, Adam's state, generator),
+      three validation passes, ``kmeans_fit`` and ``cluster_and_sort``;
+      each program's eager calls, captures and replays checked, and B4 and
+      B1 launched once a step. One profiled pair of graphed streaming steps
+      shows both kernels launched by cudaGraphLaunch. Then graphed against
+      eager in turns (N_TURNS each): the step at batch 64 (f32, bf16),
+      ``bench.stream_rate`` at batch 512 synchronous and with prefetch 2,
+      one validation pass, ``cluster_and_sort``; captures and pool sizes
+      printed, each graphed path's launches into the kernels line
+      (``phase_n_launches``).
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
@@ -696,6 +715,15 @@ def pair_diffs(torch, turns, graphed, eager):
     for k, ((lg, ag), (le, ae)) in enumerate(zip(turns["graphed"]["metrics"], turns["eager"]["metrics"])):
         if not (torch.equal(lg, le) and torch.equal(ag, ae)):
             out[f"epoch {k} metrics"] = float(torch.maximum((lg - le).abs().max(), (ag - ae).abs().max()))
+    out.update(state_diffs(torch, graphed, eager))
+    return out
+
+
+def state_diffs(torch, graphed, eager):
+    """Where two (model, optimizer, generators) triples differ: every tensor
+    of the models and of the optimizers' state, the generators' states.
+    Empty when they hold the same bits."""
+    out = {}
     (mg, og, gg), (me, oe, ge) = graphed, eager
     out.update({f"model{k}": v for k, v in tensor_diffs(torch, mg.state_dict(), me.state_dict()).items()})
     out.update({f"optimizer{k}": v for k, v in tensor_diffs(
@@ -1012,7 +1040,7 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     }
     with torch.no_grad():
         t_forward = cuda_ms(torch, lambda: model(x0), 20)
-    t_step = cuda_ms(torch, lambda: step(x0, lbl[0]), 20)
+    t_step = cuda_ms(torch, lambda: step.fn(x0, lbl[0]), 20)  # the eager step
     # the step time: the graphed epoch (make_finetune_epoch_scan, as
     # transfer_learn runs it; the fine-tuned model) beside the eager step
     # loop (a copy of it), in turns, each side with its own dataset of one
@@ -1033,7 +1061,7 @@ def finetune_phase(torch, fe, cases, rng, work: Path, then=None):
     step_e, _, _ = make_finetune_step(model_eager, 1e-3, _head_only)
 
     def eager_epoch(idx, lbl, sil):
-        ms = [step_e(ds_e._train_device(bank_e["bank"], idx[i], sil[i]), lbl[i]) for i in range(idx.shape[0])]
+        ms = [step_e.fn(ds_e._train_device(bank_e["bank"], idx[i], sil[i]), lbl[i]) for i in range(idx.shape[0])]
         return torch.stack([m["loss"] for m in ms]), torch.stack([m["accuracy"] for m in ms])
 
     inputs = [ds_g._put_batch(tuple(np.stack(a) for a in zip(*ds_g.host_train_indices(
@@ -1928,7 +1956,7 @@ def pretrain_sides(torch, model, corpus, group):
             run = build_fused_resident_epoch(m, opt, group, ds, bank["bank"], drop)
             out = (ds, bank)
         else:
-            step, _ = make_pretrain_step(m, opt, group)
+            step = make_pretrain_step(m, opt, group)[0].fn  # the eager step
 
             def run(idx, lbl, sil, step=step, ds=ds, bank=bank, drop=drop):
                 ms = [step(ds._train_device(bank["bank"], idx[i], sil[i]), lbl[i], drop) for i in range(idx.shape[0])]
@@ -1963,7 +1991,7 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
     -> inference at bfloat16; the bf16 stream beside the float32 one; a
     bf16 fine-tune beside phase e's. Returns the float32 pretraining epoch
     (for ``--profile``), which runs in the process group: the caller leaves
-    the group after it."""
+    the group after it; and the phase's corpus (phase n trains on it)."""
     import torch.distributed as dist
 
     from multilingual_kws_tpu_torch.api import cli
@@ -2325,7 +2353,7 @@ def pretrain_phase(torch, stream_model, ft_model, ft_corpus, finetune_epoch, cli
           f"graphed fine-tune step ms, in turns: " + "; ".join(
               f"{dtype} {float(np.median(v)):.3f} (best {min(v):.3f}: {[round(x, 3) for x in v]})"
               for dtype, v in ft_ms.items()))
-    return runs["float32"]["epoch"]
+    return runs["float32"]["epoch"], corpus
 
 
 J_SECONDS = 60  # phase j: the realtime and analysis paths run on the first 60 s of phase c's stream
@@ -3269,6 +3297,301 @@ def graph_phase(torch, fe, stream_model, ft_model, wave, work: Path):
     return launches
 
 
+N_STEPS = 6  # phase n: steps held graphed == eager (the key's eager call, its capture, then replays)
+N_FT_EPOCHS = 2  # phase n: transfer_learn(resident=False) epochs held graphed == eager (64 steps each)
+N_TURNS = 5  # phase n: graphed and eager timings, in turns, each side this many times
+N_TIMED_STEPS = 8  # phase n: steps a turn of the step's timing at batch 64
+N_E2E_BATCH = 512  # phase n: the end-to-end rates' batch (measure_pretrain_e2e's)
+N_E2E_STEPS = 6  # phase n: timed steps of each end-to-end rate (after 3 warm ones)
+
+
+def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
+    """Phase n: the per-step programs as CUDA graphs on the card (see the
+    module docstring). Returns each graphed path's launches by kernel
+    wrapper, the counts set to 0 just before it."""
+    import copy
+
+    from multilingual_kws_tpu_torch import bench
+    from multilingual_kws_tpu_torch.analysis import distance_filtering
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+    from multilingual_kws_tpu_torch.data.manifests import label_from_parent_dir
+    from multilingual_kws_tpu_torch.models.kws_model import lecun_init_, make_embedding_model
+    from multilingual_kws_tpu_torch.ops.augment import SpecAugParams
+    from multilingual_kws_tpu_torch.parallel import mesh
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+    from multilingual_kws_tpu_torch.train import graphs
+    from multilingual_kws_tpu_torch.train import pretrain as pretrain_mod
+    from multilingual_kws_tpu_torch.train.finetune import transfer_learn
+    from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    group = mesh.default_group()  # phase i's NCCL group of one rank: the collectives sit in the step's graph
+    train, val = pt_corpus["train"], pt_corpus["val"]
+    train_labels = [label_from_parent_dir(f) for f in train]
+    val_labels = [label_from_parent_dir(f) for f in val]
+    launches, programs, lines = {}, {}, []
+    transform_replays = {}  # path -> {wrapper: its launches by a transform program's replay}
+
+    def replayed(ds):
+        """B4's and B1's launches by replays of ``ds``'s train and eval
+        transform programs (B4 and B1 in the first's graph, B1 in the
+        second's)."""
+        train_r, eval_r = (ds._train_program.replays, ds._eval_program.replays) if ds else (0, 0)
+        return {"augment_quantize": train_r, "clip_features": train_r + eval_r}
+
+    def dataset():
+        return AudioDataset(standard_microspeech_model_settings(PT_WORDS + 1), pt_corpus["words"], pt_corpus["bg_dir"],
+                            [], silence_percentage=1.0, unknown_percentage=0.0,
+                            spec_aug_params=SpecAugParams(percentage=80), seed=5, device=dev)
+
+    def drop_generator():
+        drop = torch.Generator(device=dev)
+        drop.manual_seed(1)
+        return drop
+
+    def on_side(graphed, run):
+        """run() through the programs, or eagerly under disable_graphs."""
+        with contextlib.nullcontext() if graphed else graphs.disable_graphs():
+            return run()
+
+    def metrics(ms):
+        return torch.stack([torch.stack([m["loss"], m["accuracy"]]) if isinstance(m, dict) else torch.stack(m)
+                            for m in ms])
+
+    def twin_check(what, twins):
+        """twins: {graphed: (metrics, (model, optimizer, generators))}: the
+        same bits, the last step's gradients (``.grad`` after a replay)
+        included."""
+        (mg, sg), (me, se) = twins[True], twins[False]
+        diff = state_diffs(torch, sg, se)
+        diff.update({f"grad.{k}": v for k, v in tensor_diffs(torch, *(
+            {n: p.grad for n, p in side[0].named_parameters() if p.grad is not None} for side in (sg, se))).items()})
+        if not torch.equal(mg, me):
+            diff["metrics"] = float((mg - me).abs().max())
+        check(not diff, f"phase n: {what}: graphed != eager: {diff}")
+
+    def runs_of(program):
+        return program.eager_calls, program.captures, program.replays
+
+    base = {dtype: lecun_init_(make_embedding_model(PT_WORDS + 1, device="cpu", compute_dtype=dtype), seed=0)
+            for dtype in ("float32", "bfloat16")}
+    kept = {}
+    with deterministic_cudnn(torch):  # float32 weight gradients are not repeatable under the default algorithms
+        # 1. the streaming pipeline's steps at batch 64: the transform and
+        # step programs beside the eager twin, f32 and bf16
+        for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
+            twins = {}
+            for graphed in (True, False):
+                ds, model, drop = dataset(), copy.deepcopy(base[dtype]).to(dev), drop_generator()
+                opt = flat_adam(model.parameters(), 1e-3)
+                step, _ = make_pretrain_step(model, opt, group)
+
+                def run(step=step, ds=ds, drop=drop):
+                    return metrics([step(specs, lbl, drop) for specs, lbl in ds.train_batches(
+                        train, PT_BATCH, N_STEPS, labels=train_labels, single_target=False, prefetch=2)])
+
+                if graphed:
+                    got, launches[f"stream_step_{short}"] = phase_launches(torch, run)
+                    transform_replays[f"stream_step_{short}"] = replayed(ds)
+                    kept[dtype] = (model, ds, step, drop)
+                else:
+                    got = on_side(False, run)
+                twins[graphed] = (got, (model, opt, [ds.gen, drop]))
+            twin_check(f"streaming pretraining steps {dtype}", twins)
+            model, ds, step, drop = kept[dtype]
+            check(runs_of(step) == runs_of(ds._train_program) == (1, 1, N_STEPS - 1),
+                  f"phase n: {dtype}: step program runs {runs_of(step)}, transform {runs_of(ds._train_program)}")
+            check(launches[f"stream_step_{short}"] == {"augment_quantize": N_STEPS, "clip_features": N_STEPS},
+                  f"phase n: {dtype}: streaming steps launched {launches[f'stream_step_{short}']}")
+            programs[f"pretraining step {dtype}"] = step
+        programs["train transform"] = kept["float32"][1]._train_program
+        lines.append(f"streaming pretraining steps at batch {PT_BATCH} (transform and step programs, prefetch 2, "
+                     f"NCCL all-reduce in the graph), f32 and bf16: graphed == eager over {N_STEPS} steps (every "
+                     "step's loss and accuracy, the model, Adam's state, both generators)")
+
+        # 2. the scan_epoch=False resident step (build_fused_resident_step)
+        twins = {}
+        for graphed in (True, False):
+            ds, model, drop = dataset(), copy.deepcopy(base["float32"]).to(dev), drop_generator()
+            opt = flat_adam(model.parameters(), 1e-3)
+            bank = ds.build_resident_bank(train)
+            fused = pretrain_mod.build_fused_resident_step(model, opt, group, ds, bank["bank"], drop)
+            idx, lbl, sil = ds._put_batch(tuple(np.stack(a) for a in zip(*ds.host_train_indices(
+                train, PT_BATCH, N_STEPS, bank, labels=train_labels, single_target=False))))
+            got = on_side(graphed, lambda: metrics([fused(idx[i], lbl[i], sil[i]) for i in range(N_STEPS)]))
+            twins[graphed] = (got, (model, opt, [ds.gen, drop]))
+            if graphed:
+                programs["fused resident step f32"] = fused
+        twin_check("the fused resident step", twins)
+        check(runs_of(programs["fused resident step f32"]) == (1, 1, N_STEPS - 1),
+              f"phase n: fused resident step runs {runs_of(programs['fused resident step f32'])}")
+        lines.append(f"scan_epoch=False's fused resident step: graphed == eager over {N_STEPS} steps")
+
+        # 3. pretrain(resident_data=False), the user's call, one epoch
+        config = pretrain_mod.PretrainConfig(num_labels=PT_WORDS + 1, batch_size=PT_BATCH, num_epochs=1,
+                                             steps_per_epoch=N_STEPS, bn_calibration_batches=1, resident_data=False,
+                                             device=str(dev))
+        twins = {}
+        for graphed in (True, False):
+            def run(model=copy.deepcopy(base["float32"])):
+                return pretrain_mod.pretrain(train, val, pt_corpus["words"], pt_corpus["bg_dir"], config=config,
+                                             model=model, verbose=0)
+
+            if graphed:
+                (model, hist, ds), launches["pretrain_stream"] = phase_launches(torch, run)
+                transform_replays["pretrain_stream"] = replayed(ds)
+            else:
+                model, hist, ds = on_side(False, run)
+            twins[graphed] = (model.state_dict(), hist, ds.gen.get_state())
+        (sg, hg, gg), (se, he, ge) = twins[True], twins[False]
+        diff = {f"model{k}": v for k, v in tensor_diffs(torch, sg, se).items()}
+        check(not diff and hg == he and torch.equal(gg, ge),
+              f"phase n: pretrain(resident_data=False): graphed != eager: {diff}, {hg} {he}")
+        n_val = -(-len(val) // PT_BATCH)
+        check(launches["pretrain_stream"] == {"augment_quantize": N_STEPS + 1, "clip_features": N_STEPS + 1 + n_val},
+              f"phase n: pretrain(resident_data=False) launched {launches['pretrain_stream']}")
+        lines.append(f"pretrain(resident_data=False), 1 epoch of {N_STEPS} steps, 1 calibration batch, {len(val)} "
+                     f"validation clips: graphed == eager (history {hg}, model, the dataset's generator)")
+
+        # 4. transfer_learn(resident=False) at the JAX defaults, fewer epochs
+        twins, hists = {}, {}
+        for graphed in (True, False):
+            def run():
+                return transfer_learn("alpha", ft_corpus["train"], ft_corpus["val"], ft_corpus["unknown"],
+                                      num_epochs=N_FT_EPOCHS, bg_datadir=ft_corpus["bg_dir"], seed=7, verbose=0,
+                                      resident=False, device=dev)
+
+            if graphed:
+                res, launches["transfer_learn_stream"] = phase_launches(torch, run)
+                transform_replays["transfer_learn_stream"] = replayed(res.dataset)
+            else:
+                res = on_side(False, run)
+            hists[graphed] = res.history
+            twins[graphed] = (torch.tensor(res.history[0]["step_loss"] + res.history[0]["step_accuracy"]),
+                              (res.model, res.optimizer, [res.dataset.gen]))
+        twin_check("transfer_learn(resident=False)", twins)
+        check(hists[True] == hists[False], "phase n: transfer_learn(resident=False): graphed history != eager")
+        lines.append(f"transfer_learn(resident=False), {N_FT_EPOCHS} epochs of {FT_BATCH} steps from a fresh B0 "
+                     "(calibration, steps, evaluate_dataset through programs): graphed == eager (history, model, "
+                     "Adam's state, the generator)")
+
+    # 5. validation: three passes (each batch shape's eager call, capture,
+    # replays) against an eager pass, on the graphed f32 twin
+    model, ds, _, _ = kept["float32"]
+    passes = [pretrain_mod._validate(model, ds, val, val_labels, PT_BATCH, group) for _ in range(3)]
+    want = on_side(False, lambda: pretrain_mod._validate(model, ds, val, val_labels, PT_BATCH, group))
+    check(all(p == want for p in passes), f"phase n: validation sums graphed {passes} != eager {want}")
+    programs["validation f32"] = graphs.module_program(model, pretrain_mod._validation_sums)
+    programs["eval transform"] = ds._eval_program
+    check(runs_of(programs["validation f32"])[1] == 2, f"phase n: validation runs {runs_of(programs['validation f32'])}")
+    lines.append(f"validation sums over {len(val)} clips (batches of {PT_BATCH} and the last of "
+                 f"{len(val) - (n_val - 1) * PT_BATCH}): three graphed passes == eager, {want[:2]}")
+
+    # 6. k-means: the program (kmeans++ seeding and 50 Lloyd updates) on a
+    # generator seeded anew each call, against an eager call
+    pts = torch.from_numpy(np.random.default_rng(13).normal(0, 1, (50, 192)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev)
+
+    def fit():
+        gen.manual_seed(3)
+        return distance_filtering.kmeans_fit(pts, 5, gen)
+
+    fits = [fit() for _ in range(3)]
+    want = on_side(False, fit)
+    programs["k-means"] = distance_filtering._fit_program(5, 50)
+    check(all(torch.equal(f, want) for f in fits) and runs_of(programs["k-means"])[1] >= 1,
+          f"phase n: k-means graphed != eager, or not captured: {runs_of(programs['k-means'])}")
+    lines.append("kmeans_fit (50 x 192 points, 5 clusters, 50 updates): eager call, capture, replay == eager")
+
+    # 7. one profiled graphed streaming step: B4 and B1 launched by cudaGraphLaunch
+    model, ds, step, drop = kept["float32"]
+    tr = graph_trace(torch, lambda: [step(specs, lbl, drop) for specs, lbl in ds.train_batches(
+        train, PT_BATCH, 3, labels=train_labels, single_target=False)], 3)
+    check(tr["graph_launches"] == 2 * 3, f"phase n: {tr['graph_launches']} cudaGraphLaunch calls for 3 steps")
+    for kernel, by in tr["launched_by"].items():
+        check(by and all("GraphLaunch" in n for n in by), f"phase n: {kernel} launched by {by}")
+    lines.append(f"profiled graphed streaming steps: {tr['graph_launches']} cudaGraphLaunch for 3 steps; launched "
+                 f"by {tr['launched_by']}; device busy {tr['busy_ms']:.2f} ms of {tr['wall_s'] * 1e3:.2f} ms, idle "
+                 f"{tr['idle']:.3f}")
+
+    # 8. timings, graphed against eager in turns
+    def turns(sides, timed):
+        out = {name: [] for name in sides}
+        for turn in range(N_TURNS):
+            for name in (list(sides) if turn % 2 == 0 else list(sides)[::-1]):
+                sync()
+                t0 = time.perf_counter()
+                timed(sides[name])
+                sync()
+                out[name].append(time.perf_counter() - t0)
+        return out
+
+    step_ms = {}
+    for dtype in ("float32", "bfloat16"):
+        # a step program of its own, captured under cuDNN's default algorithms
+        model, ds, _, drop = kept[dtype]
+        step, _ = make_pretrain_step(model, flat_adam(model.parameters(), 1e-3), group)
+        specs, lbl = next(ds.train_batches(train, PT_BATCH, 1, labels=train_labels, single_target=False))
+        for fn in (step, step, step.fn):  # the key's eager call, its capture; the eager step's warm-up
+            fn(specs, lbl, drop)
+        walls = turns({"graphed": step, "eager": step.fn},
+                      lambda fn: [fn(specs, lbl, drop) for _ in range(N_TIMED_STEPS)])
+        step_ms[dtype] = {k: [w / N_TIMED_STEPS * 1e3 for w in v] for k, v in walls.items()}
+    e2e_ds, e2e_files, e2e_labels = bench.pretrain_e2e_corpus(work / "n_e2e", device=dev)
+    e2e_model = bench.embedding_model("float32", dev)
+    e2e = {(graphed, prefetch): [] for graphed in (True, False) for prefetch in (0, 2)}
+    for turn in range(N_TURNS):
+        for graphed in ((True, False) if turn % 2 == 0 else (False, True)):
+            for prefetch in (0, 2):
+                e2e[graphed, prefetch].append(on_side(graphed, lambda: bench.stream_rate(
+                    e2e_model, e2e_ds, e2e_files, e2e_labels, N_E2E_BATCH, N_E2E_STEPS, prefetch)))
+    del e2e_model
+    model, ds, _, _ = kept["float32"]
+    val_s = turns({"graphed": True, "eager": False}, lambda graphed: on_side(
+        graphed, lambda: pretrain_mod._validate(model, ds, val, val_labels, PT_BATCH, group)))
+    alpha = ft_corpus["train"] + ft_corpus["val"]
+    emb_fn = distance_filtering.make_embedding_fn(ft_model)
+
+    def cluster():
+        return distance_filtering.cluster_and_sort(alpha, emb_fn, seed=3, n_train=15, n_clusters=3, device=dev)
+
+    got, launches["cluster_and_sort"] = phase_launches(torch, cluster)
+    transform_replays["cluster_and_sort"] = replayed(None)  # featurize_files is eager
+    want = on_side(False, cluster)
+    check(all(np.array_equal(got[k], want[k]) for k in want), "phase n: cluster_and_sort graphed != eager")
+    cluster_s = turns({"graphed": True, "eager": False}, lambda graphed: on_side(graphed, cluster))
+
+    def spread(v, fmt="{:.3f}"):
+        v = np.asarray(v)
+        return f"median {fmt.format(np.median(v))} ({fmt.format(v.min())}-{fmt.format(v.max())})"
+
+    for line in lines:
+        print(f"phase n: {line}")
+    for name, program in programs.items():
+        pool = program.pool_bytes()
+        print(f"phase n: program {name}: eager calls {program.eager_calls}, captures {program.captures}, replays "
+              f"{program.replays}, capture {program.capture_s:.3f} s, pool "
+              + (f"{pool / 2**20:.1f} MiB" if pool is not None else "not measured"))
+    for dtype, ms in step_ms.items():
+        print(f"phase n: pretraining step {dtype} at batch {PT_BATCH} (fixed specs), ms a step over {N_TURNS} turns "
+              f"of {N_TIMED_STEPS}: graphed {spread(ms['graphed'])}, eager {spread(ms['eager'])}; graphed "
+              f"{[round(x, 3) for x in ms['graphed']]}, eager {[round(x, 3) for x in ms['eager']]}")
+    for prefetch in (0, 2):
+        g, e = e2e[True, prefetch], e2e[False, prefetch]
+        print(f"phase n: end to end (bench.stream_rate) at batch {N_E2E_BATCH}, prefetch {prefetch}, clips/s over "
+              f"{N_TURNS} turns of {N_E2E_STEPS} steps: graphed {spread(g, '{:.1f}')}, eager {spread(e, '{:.1f}')}; "
+              f"graphed {[round(x, 1) for x in g]}, eager {[round(x, 1) for x in e]}")
+    print(f"phase n: one validation pass ({len(val)} clips), s over {N_TURNS} turns: graphed "
+          f"{spread(val_s['graphed'], '{:.4f}')}, eager {spread(val_s['eager'], '{:.4f}')}")
+    print(f"phase n: cluster_and_sort ({len(alpha)} clips, 15 to train, 3 clusters), s over {N_TURNS} turns: graphed "
+          f"{spread(cluster_s['graphed'], '{:.4f}')}, eager {spread(cluster_s['eager'], '{:.4f}')}; graphed == eager")
+    print(f"phase n: launches by path {launches}; of them replays {transform_replays}")
+    print(f"phase n: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3538,7 +3861,8 @@ def main() -> int:
     # (h) the CLI's train and inference, and the checkpoints
     cli_paths = cli_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
     # (i) pretraining, and bf16 on the stream, the CLI and the fine-tune
-    pretrain_epoch = pretrain_phase(torch, model, ft_model, corpus, finetune_epoch, cli_paths, Path(work.name))
+    pretrain_epoch, pt_corpus = pretrain_phase(torch, model, ft_model, corpus, finetune_epoch, cli_paths,
+                                               Path(work.name))
     # (j) the realtime detector, the TF-free weight mapping and the analysis modules
     analysis_phase(torch, fe, ft_model, corpus, wave, labels, Path(work.name))
     # (k) the DS-CNN, the native host path, profiling, the build cache, wav2vec2
@@ -3547,10 +3871,13 @@ def main() -> int:
     phase_l = bench_phase(torch, Path(work.name))
     # (m) the inference programs as CUDA graphs
     phase_m = graph_phase(torch, fe, model, ft_model, wave, Path(work.name))
+    # (n) the per-step programs as CUDA graphs
+    phase_n = step_program_phase(torch, pt_corpus, corpus, ft_model, Path(work.name))
     for k in kernels:
         wrapper = "stream_prefix" if k["name"] == "stream_prefix_clips" else k["name"]
         k["phase_l_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_l.items()}
         k["phase_m_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_m.items()}
+        k["phase_n_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_n.items()}
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:

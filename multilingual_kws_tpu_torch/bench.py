@@ -535,7 +535,7 @@ def spec_pretrain_epoch(model, specs: torch.Tensor, seed: int = 1):
     opt = flat_adam(model.parameters(), 1e-3)
     drop = torch.Generator(device=dev)
     drop.manual_seed(seed)
-    step, _ = make_pretrain_step(model, opt, None)
+    step = make_pretrain_step(model, opt, None)[0].fn  # eager: the epoch's graph holds it
 
     def body(rows, labels, is_silence):
         m = step(specs, labels, drop)
@@ -586,64 +586,86 @@ def measure_pretrain_step(batch: int = 512, steps: int = 96, reps: int = 3, num_
     return out
 
 
+def pretrain_e2e_corpus(tmp, words: int = 16, clips: int = 32, device="cuda"):
+    """The end-to-end pretraining corpus under ``tmp``: ``words`` tone words
+    of ``clips`` one-second clips each and a background. Returns (dataset
+    (seed 0, 1 % silence), files, labels)."""
+    from .data.dataset import AudioDataset
+    from .settings import standard_microspeech_model_settings
+    from .utils.wav import write_wav
+
+    tmp = Path(tmp)
+    names = [f"w{i:02d}" for i in range(words)]
+    files, labels = [], []
+    for wi, w in enumerate(names):
+        for i in range(clips):
+            p = tmp / "clips" / w / f"{i}.wav"
+            p.parent.mkdir(parents=True, exist_ok=True)
+            write_wav(p, tone_clip(300.0 + 45 * wi, seed=wi * 100 + i))
+            files.append(str(p))
+            labels.append(w)
+    dataset = AudioDataset(standard_microspeech_model_settings(words + 1), names, _write_background(tmp, 1), [],
+                           silence_percentage=1.0, seed=0, device=resolve_device(device))
+    return dataset, files, labels
+
+
+def stream_rate(model, dataset, files, labels, batch: int, steps: int, prefetch: int) -> float:
+    """Clips/s of ``steps`` streaming-pipeline pretraining steps of
+    ``model`` (a fresh flat Adam, drop-connect seeded 1) on
+    ``dataset.train_batches`` at ``batch``, ``prefetch`` batches ahead,
+    after 3 warm steps: the transform and the step programs (CUDA graphs
+    from their second calls; under ``train/graphs.disable_graphs``,
+    eager)."""
+    from .train.steps import flat_adam, make_pretrain_step
+
+    dev = dataset.device
+    drop = torch.Generator(device=dev)
+    drop.manual_seed(1)
+    step, _ = make_pretrain_step(model, flat_adam(model.parameters(), 1e-3), None)
+
+    def run(n):
+        for specs, lbl in dataset.train_batches(files, batch, n, labels=labels, single_target=False,
+                                                prefetch=prefetch):
+            step(specs, lbl, drop)
+        _sync(dev)
+
+    run(3)
+    t0 = time.perf_counter()
+    run(steps)
+    return batch * steps / (time.perf_counter() - t0)
+
+
 def measure_pretrain_e2e(tmp, compute_bound: Optional[float] = None, words: int = 16, clips: int = 32,
                          batch: int = 512, steps: int = 12, resident_steps: int = 48, reps: int = 3,
                          num_labels: int = NUM_LABELS, device="cuda", **trunk_kw) -> Dict:
     """End-to-end pretraining throughput at ``batch`` with the input
     pipeline (wav reads, batch assembly, augment and frontend kernels):
     ``train_batches`` synchronous and with ``data/pipeline.prefetch`` (2
-    ahead), ``steps`` steps each after 3 warm ones; and the resident bank
-    with each epoch a CUDA graph (``build_fused_resident_epoch``), epochs of
+    ahead), ``steps`` steps each after 3 warm ones (``stream_rate``: the
+    transform and the step programs), and synchronous once more under
+    ``train/graphs.disable_graphs`` (eager); and the resident bank with
+    each epoch a CUDA graph (``build_fused_resident_epoch``), epochs of
     ``resident_steps`` after one warm epoch, the median of ``reps``.
-    ``compute_bound``: the float32 step's clips/s, for the resident share."""
-    from .data.dataset import AudioDataset
-    from .settings import standard_microspeech_model_settings
+    ``compute_bound``: the float32 step's clips/s, for the resident
+    share."""
+    from .train.graphs import disable_graphs
     from .train.pretrain import build_fused_resident_epoch
-    from .train.steps import flat_adam, make_pretrain_step
-    from .utils.wav import write_wav
+    from .train.steps import flat_adam
 
     dev = resolve_device(device)
-    tmp = Path(tmp)
-    names = [f"w{i:02d}" for i in range(words)]
-    paths = {w: [] for w in names}
-    for wi, w in enumerate(names):
-        for i in range(clips):
-            p = tmp / "clips" / w / f"{i}.wav"
-            p.parent.mkdir(parents=True, exist_ok=True)
-            write_wav(p, tone_clip(300.0 + 45 * wi, seed=wi * 100 + i))
-            paths[w].append(str(p))
-    files = [f for w in names for f in paths[w]]
-    labels = [w for w in names for _ in paths[w]]
-    bg_dir = _write_background(tmp, 1)
-    dataset = AudioDataset(standard_microspeech_model_settings(words + 1), names, bg_dir, [],
-                           silence_percentage=1.0, seed=0, device=dev)
+    dataset, files, labels = pretrain_e2e_corpus(tmp, words, clips, dev)
     bank = dataset.build_resident_bank(files)
 
-    def fresh():
-        model = embedding_model("float32", dev, num_labels, **trunk_kw)
-        opt = flat_adam(model.parameters(), 1e-3)
-        drop = torch.Generator(device=dev)
-        drop.manual_seed(1)
-        return model, opt, drop
-
     def streamed(prefetch: int) -> float:
-        model, opt, drop = fresh()
-        step, _ = make_pretrain_step(model, opt, None)
-
-        def run(n):
-            for specs, lbl in dataset.train_batches(files, batch, n, labels=labels, single_target=False,
-                                                    prefetch=prefetch):
-                step(specs, lbl, drop)
-            _sync(dev)
-
-        run(3)
-        t0 = time.perf_counter()
-        run(steps)
-        return batch * steps / (time.perf_counter() - t0)
+        model = embedding_model("float32", dev, num_labels, **trunk_kw)
+        return stream_rate(model, dataset, files, labels, batch, steps, prefetch)
 
     def resident() -> float:
-        model, opt, drop = fresh()
-        epoch = build_fused_resident_epoch(model, opt, None, dataset, bank["bank"], drop, device=dev)
+        model = embedding_model("float32", dev, num_labels, **trunk_kw)
+        drop = torch.Generator(device=dev)
+        drop.manual_seed(1)
+        epoch = build_fused_resident_epoch(model, flat_adam(model.parameters(), 1e-3), None, dataset, bank["bank"],
+                                           drop, device=dev)
 
         def draws():
             d = list(dataset.host_train_indices(files, batch, resident_steps, bank, labels=labels,
@@ -658,15 +680,19 @@ def measure_pretrain_e2e(tmp, compute_bound: Optional[float] = None, words: int 
         return batch * resident_steps / (time.perf_counter() - t0)
 
     sync_rate, prefetch_rate = streamed(0), streamed(2)
+    with disable_graphs():
+        eager_rate = streamed(0)
     res = [resident() for _ in range(reps)]
     med = float(np.median(res))
     return {
         "metric": f"{num_labels}-way pretrain END-TO-END incl. input pipeline (bs {batch})",
         "stream_sync_clips_per_sec": round(sync_rate, 1),
         "stream_prefetch2_clips_per_sec": round(prefetch_rate, 1),
+        "stream_sync_eager_clips_per_sec": round(eager_rate, 1),
         "resident_graphed_clips_per_sec": round(med, 1),
         "resident_reps_clips_per_sec": [round(r, 1) for r in res],
-        "steps_timed": {"stream_sync": steps, "stream_prefetch2": steps, "resident_graphed": resident_steps},
+        "steps_timed": {"stream_sync": steps, "stream_prefetch2": steps, "stream_sync_eager": steps,
+                        "resident_graphed": resident_steps},
         "unit": "clips/sec",
         "pct_of_train_step_bound": round(100 * med / compute_bound, 1) if compute_bound else None,
     }

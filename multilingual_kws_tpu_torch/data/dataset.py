@@ -20,7 +20,16 @@ its bits. Both training pipelines, the streaming one (``train_batches``: a
 host batch uploaded per step, prefetched on a thread) and the resident one
 (``train_batches_resident``: the clips uploaded once, indices per step), go
 through one device transform (``augment_featurize``) and consume the
-generator alike, so one seed gives them identical specs.
+generator alike, so one seed gives them identical specs. The streaming
+pipeline's transform of an uploaded batch and the eval featurization are
+programs (``train/graphs.ProgramGraphs``: on the card a CUDA graph per batch
+shape after one eager call, B4 and B1 inside it), the counterparts of the
+JAX package's jitted ``train`` and ``eval_fn`` (``_jitted_device_fns``); the
+transform is a program of its own, apart from the training step, as in the
+JAX package, because BN calibration and other trainers take its batches
+too. Pretraining and the fine-tune run the resident pipeline's transform
+inside the program of their step or epoch (``train/pretrain.py``,
+``train/steps.py``); ``train_batches_resident`` runs it eagerly.
 
 Data parallelism (``shard=(rank, world_size)``, ``parallel/mesh.py``): every
 process makes the same host draw of the global batch and the same device
@@ -39,6 +48,7 @@ from __future__ import annotations
 import functools
 import glob
 import os
+import weakref
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +62,7 @@ from ..ops.micro_exact import FrontendConfig
 from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
 from ..parallel.mesh import local_rows
 from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL, ModelSettings
+from ..train.graphs import ProgramGraphs
 from ..utils.wav import read_wav, read_wav_int16
 
 
@@ -176,6 +187,11 @@ class AudioDataset:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed_val) % (2**31))
         self._wav_cache: Dict[str, np.ndarray] = {}
+        # the jitted transforms' counterparts (through a weak reference: the
+        # dataset owns its programs)
+        ref = weakref.ref(self)
+        self._train_program = ProgramGraphs(lambda wav, sil: ref()._train_upload(wav, sil), generators=[self.gen])
+        self._eval_program = ProgramGraphs(lambda wav: ref()._eval_device(wav))
 
     # -- device functions -----------------------------------------------------
 
@@ -184,6 +200,17 @@ class AudioDataset:
             self.frontend, self.aug_params, self.gen, fg_bank, rows, is_silence,
             self.bg_data, self.bg_sizes, keep,
         )
+
+    def _train_upload(self, wav, is_silence):
+        """The streaming pipeline's transform: this process's int16 clips of
+        the global batch (silence rows zero) and the global batch's (B,)
+        silence flags -> specs."""
+        b = is_silence.shape[0]
+        keep = self._keep(b)
+        # the global batch's rows, numbered so that the kept ones index the
+        # uploaded clips
+        rows = torch.arange(-keep.start, b - keep.start, dtype=torch.int32, device=wav.device)
+        return self._train_device(wav, rows, is_silence, keep)
 
     def _keep(self, batch_size: int) -> slice:
         """This process's rows of a global training batch."""
@@ -194,7 +221,9 @@ class AudioDataset:
 
     def _put_batch(self, batch):
         """numpy (int16 waveforms or bank rows, label ids, is_silence) -> the
-        same on the device (rows as int32, labels as int64)."""
+        same on the device (rows as int32, labels as int64), by blocking
+        copies: on the device when this returns, whatever stream reads
+        them."""
         data, lbl, sil = batch
         dtype = torch.int16 if data.dtype == np.int16 else torch.int32
         return (
@@ -248,21 +277,21 @@ class AudioDataset:
         ``labels`` list. prefetch > 0 assembles host batches, and uploads
         them, that many steps ahead on a background thread
         (data/pipeline.py); the batches are the same either way. Under a
-        ``shard`` only this process's clips are read and uploaded."""
-        keep = self._keep(batch_size)
+        ``shard`` only this process's clips are read and uploaded. Each
+        uploaded batch goes through the train transform's program (its
+        clips copied into the graph's static input on the current stream):
+        the upload is a blocking copy, done before the thread queues the
+        batch, so it is ordered before that copy."""
         host = self.host_train_batches(
-            files, batch_size, num_steps, labels=labels, single_target=single_target, keep=keep
+            files, batch_size, num_steps, labels=labels, single_target=single_target, keep=self._keep(batch_size)
         )
         transfer = map(self._put_batch, host)
         if prefetch > 0:
             from .pipeline import prefetch as _prefetch
 
             transfer = _prefetch(transfer, size=prefetch)
-        # the global batch's rows, numbered so that the kept ones index the
-        # uploaded clips
-        rows = torch.arange(-keep.start, batch_size - keep.start, dtype=torch.int32, device=self.device)
         for wav, lbl, sil in transfer:
-            yield self._train_device(wav, rows, sil, keep), lbl
+            yield self._train_program(wav, sil), lbl
 
     def build_resident_bank(self, files: Sequence[str]):
         """Upload every unique training clip (plus unknowns) once as an
@@ -467,4 +496,4 @@ class AudioDataset:
             chunk = entries[i : i + batch_size]
             wav = torch.from_numpy(np.stack([c[0] for c in chunk])).to(self.device)
             lbl = torch.tensor([c[1] for c in chunk], dtype=torch.int64, device=self.device)
-            yield self._eval_device(wav), lbl
+            yield self._eval_program(wav), lbl

@@ -25,8 +25,12 @@ once and runs as one device program, as in the JAX package
 (``train/steps.make_finetune_epoch_scan``: on the card a CUDA graph of the
 step, replayed once a step; each phase captures its own, with its own
 optimizer). The streaming pipeline (``resident=False``) runs a step at a
-time from host batches; both pipelines take the same steps on the same
-batches.
+time from host batches, the transform and the step each a program
+(``AudioDataset.train_batches``, ``make_finetune_step``: on the card a CUDA
+graph per shape after one eager call, as the JAX package jits its step);
+both pipelines take the same steps on the same batches. Each epoch's
+evaluation (``evaluate_dataset``) runs the eval featurization and
+``evaluate`` as programs too.
 """
 
 from __future__ import annotations
@@ -292,8 +296,8 @@ def transfer_learn(
 
 def evaluate_dataset(evaluate_fn, dataset: AudioDataset, files, batch_size) -> Dict[str, float]:
     """Weighted-mean metrics over eval batches (``evaluate_fn`` from
-    ``make_finetune_step``; the JAX package's function also takes its train
-    state, which the port keeps in the model)."""
+    ``make_finetune_step``, a program; the JAX package's function also
+    takes its train state, which the port keeps in the model)."""
     tot_n = 0
     tot_loss = 0.0
     tot_acc = 0.0

@@ -44,19 +44,29 @@ the capture fails, and raises.
 
 On the CPU the same step runs as a plain Python loop, counter and all.
 
-The JAX package's inference entry points are ``jax.jit`` programs compiled
-once per input shape (``train/finetune._cached_predict``, the engine's
-predict, ``analysis/distance_filtering.make_embedding_fn``, the bench's
-steps). ``ProgramGraphs`` is their counterpart: one CUDA graph per key
-(the tensor arguments' shapes, dtypes and devices, and the addresses of the
-modules' parameters and buffers), captured on the key's second call, after
-one eager call, and replayed from then on; ``module_program`` caches one per
-module and method, as ``_cached_predict`` caches one per model, and
-``serve`` gives the callable that the entry points return.
+The JAX package's other device programs are ``jax.jit`` functions compiled
+once per input shape: the inference entry points
+(``train/finetune._cached_predict``, the engine's predict,
+``analysis/distance_filtering.make_embedding_fn``, the bench's steps), the
+per-step training programs (``make_pretrain_step``'s and
+``make_finetune_step``'s step and evaluate, the fused resident step, the
+dataset's train and eval transforms, validation) and ``kmeans_fit``.
+``ProgramGraphs`` is their counterpart: one CUDA graph per key (the
+arguments' shapes, dtypes and devices, the generators they draw from, the
+addresses of the modules' parameters and buffers and of the optimizer's
+state), captured on the key's second call, after one eager call, and
+replayed from then on; ``module_program`` caches one per module and method,
+as ``_cached_predict`` caches one per model, and ``serve`` gives the
+callable that the inference entry points return. A program is never called
+inside another capture: an epoch's step is the program's eager function,
+``program.fn``. ``disable_graphs()`` runs every program eagerly, as
+``jax.disable_jit()`` runs jitted functions.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import time
 import weakref
@@ -221,18 +231,38 @@ def count_replays(per_replay: Dict[Callable, int], replays: int) -> None:
 # package's ``lru_cache(maxsize=8)`` of jitted predicts
 MAX_SHAPES = 8
 
+# set inside ``disable_graphs()``
+_GRAPHS_OFF = contextvars.ContextVar("graphs_off", default=False)
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Inside the block every ``ProgramGraphs`` call runs its function
+    eagerly, on the current stream, and keeps no key: the counterpart of
+    ``jax.disable_jit()``, for an eager run of an entry point beside its
+    graphed one (the same calls, the same draws). Epochs (``EpochGraph``)
+    are not affected."""
+    token = _GRAPHS_OFF.set(True)
+    try:
+        yield
+    finally:
+        _GRAPHS_OFF.reset(token)
+
 
 class _Graphed:
     """One key's program: no graph after its eager call; then the graph,
-    its static inputs and outputs, and the launches one replay adds."""
+    its static arguments (a generator argument as it is) and outputs, the
+    launches one replay adds, and for a training step the gradients the
+    graph writes."""
 
-    __slots__ = ("graph", "inputs", "outputs", "per_replay")
+    __slots__ = ("graph", "inputs", "outputs", "per_replay", "grads")
 
     def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self.inputs: tuple = ()
         self.outputs = None
         self.per_replay: Dict[Callable, int] = {}
+        self.grads: list = []
 
 
 def _weights(module: torch.nn.Module, into: list) -> list:
@@ -247,37 +277,75 @@ def _weights(module: torch.nn.Module, into: list) -> list:
     return into
 
 
+def _arg_key(a):
+    """A tensor argument's shape, dtype and device; a generator's identity
+    (the graph draws from the generator it was captured with); None."""
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), a.dtype, a.device
+    if isinstance(a, torch.Generator):
+        return "generator", id(a)
+    if a is None:
+        return None
+    raise TypeError(f"a program takes tensors, generators and None, not {type(a).__name__}")
+
+
+def _map_tensors(fn: Callable, out):
+    """``out`` (a tensor, or a tuple, list or dict of tensors) with ``fn``
+    applied to each tensor."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, dict):
+        return {k: fn(t) for k, t in out.items()}
+    return type(out)(fn(t) for t in out)
+
+
 class ProgramGraphs:
-    """``program(*tensors)``: ``fn(*tensors)``, on a card as one CUDA graph
-    per key, the way ``jax.jit`` keeps one executable per input shape.
+    """``program(*args)``: ``fn(*args)``, on a card as one CUDA graph per
+    key, the way ``jax.jit`` keeps one executable per input shape.
 
-    fn: tensors -> a tensor or a tuple of tensors, on the device, with no
-    host sync and no shape-dependent branch it does not take again for the
-    same shapes. modules: the ``nn.Module``s whose weights ``fn`` reads
-    (held by weak references: the program does not keep them alive).
+    fn: tensors, ``torch.Generator``s and None -> a tensor, or a tuple, list
+    or dict of tensors, on the device, with no host sync and no
+    shape-dependent branch it does not take again for the same shapes.
+    modules: the ``nn.Module``s whose weights ``fn`` reads (held by weak
+    references: the program does not keep them alive). optimizer: for a
+    training step, the optimizer ``fn`` steps. generators: the generators
+    ``fn`` draws from besides its generator arguments. train: the modules'
+    mode (``module.train(train)``) set before each call; None leaves it.
 
-    - The key is the tensor arguments' shapes, dtypes and devices, and the
-      training flag and ``data_ptr()`` of every parameter and buffer of
-      ``modules``. An in-place update (an optimizer step, ``copy_``,
-      ``load_state_dict``) keeps the key, and the replay reads the new
-      weights; new storage (``.to()``, ``load_state_dict(assign=True)``, a
-      swap of ``.data``) gives a new key and drops the old weights' graphs,
-      so a graph never replays against storage that was freed.
+    - The key is the tensor arguments' shapes, dtypes and devices, the
+      generator arguments' identities, and the training flag and
+      ``data_ptr()`` of every parameter and buffer of ``modules`` and of
+      every tensor of the optimizer's state. An in-place update (an
+      optimizer step, ``copy_``, ``load_state_dict``) keeps the key, and the
+      replay reads the new weights; new storage (``.to()``,
+      ``load_state_dict(assign=True)``, a swap of ``.data``, new optimizer
+      state) gives a new key and drops the old weights' graphs, so a graph
+      never replays against storage that was freed.
     - A key's first call runs eagerly, on a side stream: the warm-up
       (cuDNN's choice of algorithm, the kernels' lazy build, the frontend's
-      tables), so a shape seen once never pays for a capture. The second
-      captures, in one private memory pool that the program's graphs share,
-      and replays; later calls copy their arguments into the graph's static
-      inputs (from any device: a host array is uploaded into them) and
-      replay. The outputs are fresh tensors, cloned out of the graph's
-      memory before the next replay can overwrite it; replays run in turn
-      on the current stream.
+      tables, the optimizer's lazy state, a process group's communicator),
+      so a shape seen once never pays for a capture. The key it is kept
+      under is taken after that call, once the optimizer's state exists.
+      The second call captures, in one private memory pool that the
+      program's graphs share, and replays; later calls copy their tensor
+      arguments into the graph's static inputs (from any device: a host
+      array is uploaded into them) and replay. Every call takes its step
+      once, in order, as an eager loop takes it. The outputs are fresh
+      tensors, cloned out of the graph's memory before the next replay can
+      overwrite it; replays run in turn on the current stream.
+    - The generators (``generators`` and the generator arguments) are
+      registered with each graph: a replay draws from each generator's
+      offset at the time and moves it on by what the eager call takes
+      (``CUDAGraph.register_generator_state``), so graphed draws are the
+      eager ones. After a replay of a training step the parameters'
+      ``.grad`` are the gradients it wrote.
     - At most ``max_shapes`` keys are kept, dropped least recently used
       first.
     - Launches of a kernel wrapper inside the capture count in its
       ``captured``; each replay adds them to its ``launches``.
     - There is no fallback: on a card a capture or a replay that fails
-      raises.
+      raises. A program must not be called inside another capture (an
+      ``EpochGraph``'s step calls ``fn``).
 
     The program runs on its modules' device (without parameters: its first
     argument's). On the CPU there is no graph: every call is ``fn``, and the
@@ -285,10 +353,15 @@ class ProgramGraphs:
     ``captures``, ``replays`` and ``capture_s`` (seconds, summed) say how
     the calls ran."""
 
-    def __init__(self, fn: Callable, modules: Sequence[torch.nn.Module] = (), max_shapes: int = MAX_SHAPES):
+    def __init__(self, fn: Callable, modules: Sequence[torch.nn.Module] = (), max_shapes: int = MAX_SHAPES,
+                 optimizer: Optional[torch.optim.Optimizer] = None, generators: Sequence[torch.Generator] = (),
+                 train: Optional[bool] = None):
         self.fn = fn
         self._modules = [weakref.ref(m) for m in modules]
         self.max_shapes = max_shapes
+        self.optimizer = optimizer
+        self.generators = list(generators)
+        self.train = train
         self._graphed: "OrderedDict[tuple, _Graphed]" = OrderedDict()
         self._pool = None
         self.eager_calls = 0
@@ -302,18 +375,21 @@ class ProgramGraphs:
             raise RuntimeError("a module of this program has been freed")
         return mods
 
-    def key(self, *args: torch.Tensor) -> tuple:
+    def key(self, *args) -> tuple:
         """The key a call on ``args`` runs under."""
         weights = []
         for m in self._live_modules():
             _weights(m, weights)
-        return tuple((tuple(a.shape), a.dtype, a.device) for a in args), tuple(weights)
+        if self.optimizer is not None:
+            weights.extend(t.data_ptr() for state in self.optimizer.state.values()
+                           for t in state.values() if isinstance(t, torch.Tensor))
+        return tuple(_arg_key(a) for a in args), tuple(weights)
 
     def keys(self):
         """The kept keys, least recently used first."""
         return list(self._graphed)
 
-    def device(self, *args: torch.Tensor) -> torch.device:
+    def device(self, *args) -> torch.device:
         """Where a call on ``args`` runs: the modules' device, else the first
         argument's."""
         for m in self._live_modules():
@@ -321,34 +397,40 @@ class ProgramGraphs:
                 return resolved_device(p.device)
         return resolved_device(args[0].device)
 
-    def __call__(self, *args: torch.Tensor):
+    def __call__(self, *args):
+        if self.train is not None:
+            for m in self._live_modules():
+                if any(mod.training != self.train for mod in m.modules()):  # reading is cheaper than setting
+                    m.train(self.train)
         dev = self.device(*args)
-        key = self.key(*args)
-        prog = self._graphed.get(key)
+        if _GRAPHS_OFF.get():
+            return self.fn(*_on(dev, args))
+        prog = self._graphed.get(self.key(*args))
         if prog is None or dev.type != "cuda":
             out = self._eager(dev, args)
-            self._keep(key)
+            self._keep(self.key(*args))
             return out
-        self._graphed.move_to_end(key)
         if prog.graph is None:
             self._capture(prog, args, dev)
         for buf, a in zip(prog.inputs, args):
-            buf.copy_(a)
+            if isinstance(buf, torch.Tensor):
+                buf.copy_(a)
         prog.graph.replay()
         self.replays += 1
         count_replays(prog.per_replay, 1)
-        if isinstance(prog.outputs, torch.Tensor):
-            return prog.outputs.clone()
-        return type(prog.outputs)(t.clone() for t in prog.outputs)
+        for p, g in prog.grads:
+            if p.grad is not g:
+                p.grad = g
+        return _map_tensors(torch.Tensor.clone, prog.outputs)
 
     def _eager(self, dev: torch.device, args):
         self.eager_calls += 1
         if dev.type != "cuda":
-            return self.fn(*(a.to(dev) for a in args))
-        out = on_side_stream(dev, lambda: self.fn(*(a.to(dev) for a in args)))
+            return self.fn(*_on(dev, args))
+        out = on_side_stream(dev, lambda: self.fn(*_on(dev, args)))
         current = torch.cuda.current_stream(dev)
-        for t in (out,) if isinstance(out, torch.Tensor) else out:
-            t.record_stream(current)  # made on the side stream, read on this one
+        # made on the side stream, read on this one
+        _map_tensors(lambda t: t.record_stream(current), out)
         return out
 
     def _keep(self, key: tuple) -> None:
@@ -366,12 +448,16 @@ class ProgramGraphs:
 
     def _capture(self, prog: _Graphed, args, dev: torch.device) -> None:
         with torch.inference_mode(False):  # static inputs take copies whatever mode a later call is in
-            prog.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=dev) for a in args)
+            prog.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=dev) if isinstance(a, torch.Tensor)
+                                else a for a in args)
         if not any(g.graph is not None for g in self._graphed.values()):
             # a pool lives while a graph uses it: with none left, a new one
             self._pool = torch.cuda.graph_pool_handle()
+        generators = self.generators + [a for a in args if isinstance(a, torch.Generator)]
         prog.graph, prog.outputs, prog.per_replay, seconds = capture(lambda: self.fn(*prog.inputs), dev,
-                                                                     pool=self._pool)
+                                                                     pool=self._pool, generators=generators)
+        if self.optimizer is not None:
+            prog.grads = [(p, p.grad) for group in self.optimizer.param_groups for p in group["params"]]
         self.captures += 1
         self.capture_s += seconds
 
@@ -385,6 +471,12 @@ class ProgramGraphs:
         if any("segment_pool_id" not in s for s in segments):
             return None
         return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == tuple(self._pool))
+
+
+def _on(dev: torch.device, args) -> tuple:
+    """The tensor arguments on ``dev`` (a host array's upload), the others
+    as they are."""
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
 
 
 class _ProgramCache(dict):

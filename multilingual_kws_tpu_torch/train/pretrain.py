@@ -28,9 +28,13 @@ bank indices once, and each step gathers, augments and featurizes on the
 device. With ``scan_epoch`` (the default, as in the JAX package) the
 resident epoch is one device program (``build_fused_resident_epoch``: on
 the card a CUDA graph of the step, replayed once a step); without it the
-same steps run one at a time. BN calibration, validation and checkpoints
-run eagerly between epochs. Every step and evaluation runs under
-``exact_float32``.
+same steps run one at a time, each one program (``build_fused_resident_step``).
+Larger sets stream: a host batch is uploaded a step, its transform and the
+step are programs (``AudioDataset.train_batches``, ``make_pretrain_step``),
+and so is validation's scoring of each eval batch; on the card each is a
+CUDA graph per shape after one eager call (``train/graphs.ProgramGraphs``),
+as the JAX package jits them. BN calibration and checkpoints run eagerly
+between epochs. Every step and evaluation runs under ``exact_float32``.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from ..ops.augment import SpecAugParams
 from ..parallel import mesh
 from ..settings import ModelSettings, standard_microspeech_model_settings
 from .checkpoints import BestValCheckpoint
-from .graphs import EpochGraph, check_on_device
+from .graphs import EpochGraph, ProgramGraphs, check_on_device, module_program
 from .metrics import CSVLogger, save_history
 from .steps import calibrate_batch_stats, flat_adam, make_pretrain_step, sparse_ce_from_logits
 
@@ -101,7 +105,7 @@ def build_fused_resident_epoch(model, optimizer, group, dataset: AudioDataset, b
                                drop_generator: torch.Generator, device="cuda") -> EpochGraph:
     """A resident pretraining epoch as one device program: the counterpart
     of the JAX package's ``build_fused_resident_epoch`` (a ``lax.scan`` of
-    the fused gather + augment + featurize + step).
+    the fused gather + augment + featurize + step, ``_resident_step``).
 
     Returns ``epoch(idx_all, lbl_all, sil_all) -> (losses, accs)``
     (``train/graphs.EpochGraph``): the epoch's (steps, B) global-batch bank
@@ -116,25 +120,66 @@ def build_fused_resident_epoch(model, optimizer, group, dataset: AudioDataset, b
     loop. The model, the dataset and ``bank`` must be on ``device``."""
     dev = resolve_device(device)
     check_on_device(dev, model, dataset, bank)
-    step, _ = make_pretrain_step(model, optimizer, group)
+    body = _resident_step(model, optimizer, group, dataset, bank, drop_generator)
+    return EpochGraph(body, dev, generators=[dataset.gen, drop_generator], optimizer=optimizer)
+
+
+def build_fused_resident_step(model, optimizer, group, dataset: AudioDataset, bank: torch.Tensor,
+                              drop_generator: torch.Generator, device="cuda") -> ProgramGraphs:
+    """One resident pretraining step as one device program: the counterpart
+    of the JAX package's ``build_fused_resident_step``, the step of
+    ``pretrain(scan_epoch=False)``.
+
+    Returns ``step(rows, labels, is_silence) -> (loss, accuracy)``: the
+    same step as ``build_fused_resident_epoch``'s on one step's (B,) bank
+    rows, label ids and silence flags (a row of the epoch's upload), its
+    metrics as device scalars. On the card (``device``, default ``cuda``:
+    it raises without one) it is a ``train/graphs.ProgramGraphs``, a CUDA
+    graph after one eager step; on the CPU the plain step. The model, the
+    dataset and ``bank`` must be on ``device``."""
+    dev = resolve_device(device)
+    check_on_device(dev, model, dataset, bank)
+    body = _resident_step(model, optimizer, group, dataset, bank, drop_generator)
+    return ProgramGraphs(body, [model], optimizer=optimizer, generators=[dataset.gen, drop_generator], train=True)
+
+
+def _resident_step(model, optimizer, group, dataset: AudioDataset, bank: torch.Tensor,
+                   drop_generator: torch.Generator):
+    """The fused resident step, eager: ``dataset._train_device(bank, rows,
+    is_silence, keep)`` (this rank's rows ``keep`` of the global batch),
+    then ``make_pretrain_step``'s update; (loss, accuracy) device scalars."""
+    step = make_pretrain_step(model, optimizer, group)[0].fn
 
     def body(rows, labels, is_silence):
         keep = dataset._keep(rows.shape[0])
         m = step(dataset._train_device(bank, rows, is_silence, keep), labels[keep], drop_generator)
         return m["loss"], m["accuracy"]
 
-    return EpochGraph(body, dev, generators=[dataset.gen, drop_generator], optimizer=optimizer)
+    return body
+
+
+def _validation_sums(model, specs, labels, real):
+    """One eval batch's (loss sum, correct count), float64, over the rows
+    where ``real``: the JAX package's ``eval_fn``, its padding an input."""
+    with torch.no_grad(), exact_float32():
+        logits = model(specs)
+    loss = torch.where(real, sparse_ce_from_logits(logits, labels), 0.0)
+    correct = real & (torch.argmax(logits, -1) == labels)
+    return torch.stack([loss.sum(), correct.sum()]).double()
 
 
 def _validate(model, dataset: AudioDataset, val_files, val_labels, batch_size: int, group):
     """(loss sum, correct count, rows) over all ``val_files``: each eval
     batch is padded to a multiple of the ranks (``mesh.pad_to_multiple``),
-    each rank (``dataset.shard``) featurizes and scores its rows, padded rows
-    are not counted, and the sums are all-reduced over ``group``."""
+    each rank (``dataset.shard``) featurizes and scores its rows through the
+    model's validation program (``_validation_sums``), padded rows are not
+    counted, and the sums are all-reduced over ``group``, outside the
+    program."""
     world = dataset.shard[1]
     dev = dataset.device
     sums = torch.zeros(2, dtype=torch.float64, device=dev)
     model.eval()
+    scores = module_program(model, _validation_sums)
     for start in range(0, len(val_files), batch_size):
         n = min(batch_size, len(val_files) - start)
         idx, _ = mesh.pad_to_multiple(np.arange(start, start + n), world)
@@ -144,11 +189,7 @@ def _validate(model, dataset: AudioDataset, val_files, val_labels, batch_size: i
         files = [val_files[i] for i in mine]
         labels = [val_labels[i] for i in mine]
         for specs, lbl in dataset.eval_batches(files, batch_size=len(files), labels=labels, single_target=False):
-            with torch.no_grad(), exact_float32():
-                logits = model(specs)
-            loss = torch.where(real, sparse_ce_from_logits(logits, lbl), 0.0)
-            correct = real & (torch.argmax(logits, -1) == lbl)
-            sums += torch.stack([loss.sum(), correct.sum()]).double()
+            sums += scores(specs, lbl, real)
     if group is not None:
         dist.all_reduce(sums, group=group)
     loss_sum, correct = sums.tolist()
@@ -234,6 +275,14 @@ def pretrain(
     bank = dataset.build_resident_bank(train_files) if use_resident else None
     keep = dataset._keep(config.batch_size)
 
+    def resident_draws(num_steps):
+        """One upload of a pass's (steps, B) bank indices, labels and
+        silence flags."""
+        draws = list(dataset.host_train_indices(
+            train_files, config.batch_size, num_steps, bank, labels=train_labels, single_target=False
+        ))
+        return dataset._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+
     def epoch_batches(num_steps):
         if not use_resident:
             yield from dataset.train_batches(
@@ -241,27 +290,26 @@ def pretrain(
                 single_target=False, prefetch=config.prefetch,
             )
             return
-        # one upload of the pass's bank indices, then a device loop
-        draws = list(dataset.host_train_indices(
-            train_files, config.batch_size, num_steps, bank, labels=train_labels, single_target=False
-        ))
-        idx, lbl, sil = dataset._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+        idx, lbl, sil = resident_draws(num_steps)
         for i in range(num_steps):
             yield dataset._train_device(bank["bank"], idx[i], sil[i], keep), lbl[i, keep]
 
     drop = torch.Generator(device=dev)
     drop.manual_seed(config.shuffle_seed + 1)
-    fused_epoch = (build_fused_resident_epoch(model, optimizer, group, dataset, bank["bank"], drop, device=dev)
-                   if use_resident and config.scan_epoch else None)
+    if use_resident:
+        # one device program an epoch, or a step (the JAX package's fused
+        # resident epoch and step)
+        build = build_fused_resident_epoch if config.scan_epoch else build_fused_resident_step
+        resident = build(model, optimizer, group, dataset, bank["bank"], drop, device=dev)
     try:
         for epoch in range(config.num_epochs):
             t0 = time.time()
-            if fused_epoch is not None:
-                # one upload of the epoch's bank indices, one device program
-                draws = list(dataset.host_train_indices(
-                    train_files, config.batch_size, steps_per_epoch, bank, labels=train_labels, single_target=False
-                ))
-                losses, accs = fused_epoch(*dataset._put_batch(tuple(np.stack(a) for a in zip(*draws))))
+            if use_resident and config.scan_epoch:
+                losses, accs = resident(*resident_draws(steps_per_epoch))
+            elif use_resident:
+                idx, lbl, sil = resident_draws(steps_per_epoch)
+                metrics = [resident(idx[i], lbl[i], sil[i]) for i in range(steps_per_epoch)]
+                losses, accs = (torch.stack(m) for m in zip(*metrics))
             else:
                 metrics = [step(specs, labels, drop) for specs, labels in epoch_batches(steps_per_epoch)]
                 losses = torch.stack([m["loss"] for m in metrics])

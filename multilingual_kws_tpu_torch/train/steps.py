@@ -23,6 +23,10 @@ train_monolingual_embedding.py:103-137):
 - ``make_pretrain_step``: a train-mode step of the embedding model (BN on
   batch statistics, updating its running ones; drop-connect), optionally
   data-parallel over a process group;
+- both return their step, evaluate and predict as programs
+  (``train/graphs.ProgramGraphs``: on the card a CUDA graph per input shape
+  after one eager call), as the JAX package's return jitted functions; a
+  program's eager function is its ``fn``;
 - ``make_finetune_epoch_scan``: a whole resident fine-tune epoch (bank
   gather, augment, featurize, step), on the card as a CUDA graph
   (``train/graphs.py``);
@@ -43,7 +47,7 @@ from torch import nn
 
 from .. import exact_float32, resolve_device
 from ..parallel import mesh
-from .graphs import EpochGraph, check_on_device
+from .graphs import EpochGraph, ProgramGraphs, check_on_device, eval_forward, module_program
 
 ParamPath = Tuple[str, ...]
 
@@ -108,7 +112,8 @@ def _metrics(probs, labels):
 def make_finetune_step(model: nn.Module, learning_rate: float, trainable: Callable[[ParamPath], bool]):
     """Few-shot fine-tune step: the parameters ``trainable`` accepts learn
     with a fresh Adam, every other one is frozen; the model stays in eval
-    mode. Returns (step, evaluate, predict):
+    mode. Returns (step, evaluate, predict), programs
+    (``train/graphs.ProgramGraphs``, the JAX package's jitted functions):
 
     - ``step(specs, labels)`` updates the model in place and returns
       {"loss", "accuracy"} as device scalars (no host sync); the trainable
@@ -116,7 +121,8 @@ def make_finetune_step(model: nn.Module, learning_rate: float, trainable: Callab
       ``step.optimizer`` is its Adam;
     - ``evaluate(specs, labels)`` returns the same metrics without a
       gradient;
-    - ``predict(specs)`` returns the (B, 3) softmax."""
+    - ``predict(specs)`` returns the (B, 3) softmax (the model's predict
+      program, ``graphs.module_program(model, graphs.eval_forward)``)."""
     names = set(set_trainable(model, trainable))
     opt = adam([p for n, p in model.named_parameters() if n in names], learning_rate)
     model.eval()
@@ -130,27 +136,22 @@ def make_finetune_step(model: nn.Module, learning_rate: float, trainable: Callab
             opt.step()
         return {"loss": loss.detach(), "accuracy": acc}
 
-    step.optimizer = opt
-
     @torch.no_grad()
     def evaluate(specs, labels) -> Dict[str, torch.Tensor]:
         with exact_float32():
             loss, acc = _metrics(model(specs), labels)
         return {"loss": loss, "accuracy": acc}
 
-    @torch.inference_mode()
-    def predict(specs) -> torch.Tensor:
-        with exact_float32():
-            return model(specs)
-
-    return step, evaluate, predict
+    return (ProgramGraphs(step, [model], optimizer=opt, train=False), ProgramGraphs(evaluate, [model], train=False),
+            module_program(model, eval_forward))
 
 
 def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=None):
     """Embedding-pretraining step (the JAX package's ``make_pretrain_step``):
     the model in train mode (BN on batch statistics, updating its running
     ones; drop-connect), logits, cross-entropy and accuracy. Returns (step,
-    evaluate):
+    evaluate), programs (``train/graphs.ProgramGraphs``, the JAX package's
+    jitted ``step_fn`` and ``eval_fn``):
 
     - ``step(specs, labels, drop_generator)`` updates the model in place and
       returns {"loss", "accuracy"} as device scalars (no host sync);
@@ -168,7 +169,8 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
     none while the default group has more than one rank.
 
     The step makes no host sync and no host-side collective bookkeeping, so
-    a CUDA graph can hold it, collectives included (``train/graphs.py``).
+    a CUDA graph holds it, collectives included (``train/graphs.py``); the
+    drop-connect generator is part of its key.
     ``DistributedDataParallel`` is not used: its reducer needs a dozen eager
     iterations and NCCL's asynchronous error handling off before it can be
     captured, and on one card it overlaps nothing."""
@@ -185,7 +187,7 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
         return loss, acc
 
     def step(specs, labels, drop_generator=None) -> Dict[str, torch.Tensor]:
-        model.train()
+        model.train()  # for a caller of the eager function, step.fn
         with exact_float32():
             optimizer.zero_grad(set_to_none=True)
             loss, acc = metrics(model(specs, drop_generator=drop_generator), labels)
@@ -206,7 +208,8 @@ def make_pretrain_step(model: nn.Module, optimizer: torch.optim.Optimizer, group
             loss, acc = metrics(model(specs), labels)
         return {"loss": loss, "accuracy": acc}
 
-    return step, evaluate
+    return (ProgramGraphs(step, [model], optimizer=optimizer, train=True),
+            ProgramGraphs(evaluate, [model], train=False))
 
 
 @torch.no_grad()
@@ -234,7 +237,8 @@ def make_finetune_epoch_scan(model: nn.Module, learning_rate: float, trainable: 
     step is the resident step: ``dataset._train_device(bank, rows,
     is_silence)`` (the device draws from ``dataset.gen``, the augment
     kernel, the frontend kernel, SpecAugment), then ``make_finetune_step``'s
-    update with a fresh Adam (``epoch.optimizer``). On the card (``device``,
+    update with a fresh Adam (``epoch.optimizer``), eager inside the
+    epoch's capture (``step.fn``). On the card (``device``,
     default ``cuda``: it raises without one) the epoch is a CUDA graph of
     the step replayed once a step; on the CPU the same step runs as a plain
     loop. The model, the dataset and ``bank`` must be on ``device``."""
@@ -243,7 +247,7 @@ def make_finetune_epoch_scan(model: nn.Module, learning_rate: float, trainable: 
     step, _, _ = make_finetune_step(model, learning_rate, trainable)
 
     def body(rows, labels, is_silence):
-        m = step(dataset._train_device(bank, rows, is_silence), labels)
+        m = step.fn(dataset._train_device(bank, rows, is_silence), labels)
         return m["loss"], m["accuracy"]
 
     return EpochGraph(body, dev, generators=[dataset.gen], optimizer=step.optimizer)
