@@ -225,6 +225,28 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       one validation pass, ``cluster_and_sort``; captures and pool sizes
       printed, each graphed path's launches into the kernels line
       (``phase_n_launches``).
+  (o) the frontend's entry points and the resident train transform as CUDA
+      graphs (``MicroFrontendTorch.features``, ``features_from_int16``,
+      ``stream_features``; ``AudioDataset.resident_specs``), each graphed
+      against a twin run eagerly under ``graphs.disable_graphs``, bitwise:
+      exact ``features`` on O_CLIPS one-second clips (B1), exact
+      ``features_from_int16`` on O_LONG_CLIPS 10 s clips (B6 + B3), fast
+      ``features`` on O_CLIPS clips (B5, cuFFT; graphed with TF32 allowed,
+      which its GEMM must not use), ``stream_features`` on phase c's stream
+      in O_CHUNK_S s chunks (B2 + B3; the last chunk's window count its own
+      program), realtime detections at 20, 100 and 500 ms feeds,
+      ``featurize_files`` and ``file2spec`` on phase e's corpus, O_RESIDENT
+      ``train_batches_resident`` batches and the generator's state after
+      them, and ``pretrain(resident_data=True)``'s BN calibration (under
+      phase i's NCCL group and deterministic cuDNN); each program's eager
+      calls, captures and replays checked; in a fresh process (FRESH_O),
+      profiled replays of each program at phase o's shapes show B1-B6
+      launched by cudaGraphLaunch and no wrapper called. Then graphed
+      against eager in turns
+      (O_TURNS each): realtime feed p50 / p99 (the predict graphed on both
+      sides), the ``featurize_files`` wall, fast ``features`` at O_CLIPS
+      clips, one resident batch; pool sizes printed, each graphed path's
+      launches into the kernels line (``phase_o_launches``).
       Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
@@ -3558,7 +3580,7 @@ def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
         return distance_filtering.cluster_and_sort(alpha, emb_fn, seed=3, n_train=15, n_clusters=3, device=dev)
 
     got, launches["cluster_and_sort"] = phase_launches(torch, cluster)
-    transform_replays["cluster_and_sort"] = replayed(None)  # featurize_files is eager
+    transform_replays["cluster_and_sort"] = replayed(None)  # no dataset transform: featurize_files's frontend
     want = on_side(False, cluster)
     check(all(np.array_equal(got[k], want[k]) for k in want), "phase n: cluster_and_sort graphed != eager")
     cluster_s = turns({"graphed": True, "eager": False}, lambda graphed: on_side(graphed, cluster))
@@ -3589,6 +3611,438 @@ def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
           f"{spread(cluster_s['graphed'], '{:.4f}')}, eager {spread(cluster_s['eager'], '{:.4f}')}; graphed == eager")
     print(f"phase n: launches by path {launches}; of them replays {transform_replays}")
     print(f"phase n: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+O_CLIPS = 2048  # phase o: one-second clips through features, exact and fast
+O_LONG_CLIPS = LONG_CLIPS  # phase o: 10 s clips through features_from_int16 (B6 + B3)
+O_CHUNK_S = 30  # phase o: phase c's warm-up chunks (19 of 1500 windows, the last of 1450)
+O_FEAT_BATCH = 16  # phase o: featurize_files' batch on phase e's 65 clips (four full batches and one of 1)
+O_RESIDENT = 6  # phase o: resident batches held graphed == eager
+O_TURNS = 5  # phase o: graphed and eager timings, in turns, each side this many times
+O_RESIDENT_ITERS = 8  # phase o: resident batches a timed turn
+O_TRACE_REPS = 3  # phase o: replays of a program in one profiler trace
+
+
+class _EagerFeatures:
+    """A frontend whose ``features`` is the eager twin (the realtime
+    detector's frontend before its program), for timing beside the
+    program."""
+
+    def __init__(self, fe):
+        self.fe, self.device = fe, fe.device
+
+    def features(self, windows):
+        return self.fe.features_eager(windows)
+
+
+def graph_launchers(torch, run, kernels, reps: int = 3, tries: int = 8):
+    """{kernel: {host call that launched it: count}} for each named kernel
+    in a CUDA profiler trace of ``reps`` calls of ``run()`` (its runtime
+    events carry the launches' correlation ids). A trace now and then
+    misses a kernel's events (PERF.md §7), so one that misses a named
+    kernel is taken again, up to ``tries`` times, each miss printed with
+    what the trace held. Late in this script's long process, traces of
+    the stream kernels' graph replays missed them five times in a row (CPU
+    + CUDA in phase k, CUDA only in phase o), so phase o calls this in a
+    fresh process (FRESH_O)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        device = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        missing = [k for k in kernels if not any(k in e["name"] for e in device)]
+        if not missing:
+            break
+        held = sorted({e["name"].split("(")[0].split("<")[0] for e in device})
+        print(f"graph_launchers: trace {attempt + 1} of {reps} x {kernels} misses {missing}; it holds "
+              f"{len(device)} kernel events of {held[:6]}")
+    else:
+        fail(f"graph_launchers: {tries} traces in a row miss a kernel of {kernels}")
+    host = {e.get("args", {}).get("correlation"): e["name"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    out = {}
+    for kernel in kernels:
+        names = [host.get(e["args"].get("correlation"), "unknown") for e in device if kernel in e["name"]]
+        out[kernel] = {n: names.count(n) for n in sorted(set(names))}
+    return out
+
+
+# Phase o's profiled replays, in a fresh process of this checkout: argv[1]
+# is the repo, argv[2] a JSON object of the shapes and phase e's corpus.
+# The kernels load from the run's build cache ($MKWS_COMPILATION_CACHE).
+# Each program at phase o's shapes takes its eager call and its capture,
+# then graph_launchers traces its replays, the wrappers' counts set to 0
+# just before: a replay launches through cudaGraphLaunch, and adds its
+# captured launches to the wrappers' counts (graphs.count_replays).
+FRESH_O = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from multilingual_kws_tpu_torch.data.dataset import AudioDataset
+from multilingual_kws_tpu_torch.ops import _build
+from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
+from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+from multilingual_kws_tpu_torch.utils.compilation_cache import enable_compilation_cache
+
+args = json.loads(sys.argv[2])
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+enabled = enable_compilation_cache()
+compiled = sorted(_build.build())
+dev = torch.device("cuda")
+rng = np.random.default_rng(args["seed"])
+fe, ff = MicroFrontendTorch(device=dev), MicroFrontendTorch(device=dev, mode="fast")
+audio = torch.from_numpy(rng.normal(0, 0.3, (args["clips"], cs.SR)).clip(-1, 1).astype(np.float32)).to(dev)
+int16 = lambda shape: np.clip(np.round(rng.normal(0, 3000, shape)), -32768, 32767).astype(np.int16)
+long16 = torch.from_numpy(int16((args["long_clips"], 10 * cs.SR))).to(dev)
+chunk = int16((args["windows"] - 1) * 320 + cs.SR)
+ds = AudioDataset(standard_microspeech_model_settings(3), ["alpha"], args["bg_dir"], args["unknown"],
+                  unknown_percentage=50.0, seed=7, device=dev)
+made = ds.build_resident_bank(args["train"])
+idx, _, sil = ds._put_batch(next(ds.host_train_indices(args["train"], args["batch"], 1, made)))
+runs = {
+    "exact features": (lambda: fe.features(audio), ["clip_features_kernel"]),
+    "exact features_from_int16, long clips": (lambda: fe.features_from_int16(long16),
+                                              ["stream_prefix_kernel", "stream_suffix_kernel"]),
+    "fast features": (lambda: ff.features(audio), ["noise_scan_f32_kernel"]),
+    "stream_features": (lambda: fe.stream_features(chunk, args["windows"]),
+                        ["stream_prefix_kernel", "stream_suffix_kernel"]),
+    "resident transform": (lambda: ds.resident_specs(made["bank"], idx, sil),
+                           ["augment_quantize_kernel", "clip_features_kernel"]),
+}
+with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's own set-up, outside the traces read
+    torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+out = {}
+for name, (run, kernels) in runs.items():
+    run()
+    run()
+    calls = []
+    traced = lambda: calls.append(run())
+    by, wrapped = cs.phase_launches(torch, lambda: cs.graph_launchers(torch, traced, kernels, reps=args["reps"]))
+    out[name] = {"by": by, "wrapper_launches": wrapped, "calls": len(calls)}
+print("FRESH_O " + json.dumps({"enabled": enabled, "compiled": compiled, "programs": out}))
+"""
+
+
+def fresh_graph_launchers(ft_corpus, windows: int):
+    """FRESH_O in a fresh process: {program: {"by": {kernel: {host call:
+    count}}, "wrapper_launches": {...}, "calls": replays}} of its profiled
+    replays; its retries printed."""
+    args = {"seed": 14, "clips": O_CLIPS, "long_clips": O_LONG_CLIPS, "windows": windows, "batch": FT_BATCH,
+            "reps": O_TRACE_REPS, "train": ft_corpus["train"], "unknown": ft_corpus["unknown"],
+            "bg_dir": ft_corpus["bg_dir"]}
+    out = subprocess.run([sys.executable, "-c", FRESH_O, str(ROOT), json.dumps(args)],
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        if line.startswith("graph_launchers:"):
+            print(f"phase o (fresh process): {line}")
+    check(out.returncode == 0, f"phase o: the fresh process failed: {out.stderr[-3000:]}")
+    fresh = json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("FRESH_O ")][-1][8:])
+    check(fresh["enabled"] and fresh["compiled"] == [], f"phase o: the fresh process built kernels: {fresh}")
+    return fresh["programs"]
+
+
+def frontend_program_phase(torch, ft_model, wave, ft_corpus, pt_corpus):
+    """Phase o: the frontend's entry points and the resident train
+    transform as CUDA graphs on the card (see the module docstring).
+    Returns each graphed path's launches by kernel wrapper, the counts set
+    to 0 just before it."""
+    import copy
+
+    from multilingual_kws_tpu_torch.data.dataset import AudioDataset, file2spec
+    from multilingual_kws_tpu_torch.models.kws_model import lecun_init_, make_embedding_model
+    from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
+    from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
+    from multilingual_kws_tpu_torch.stream.engine import StreamFlags, stream_feature_chunks
+    from multilingual_kws_tpu_torch.stream.realtime import RealtimeDetector
+    from multilingual_kws_tpu_torch.train import graphs
+    from multilingual_kws_tpu_torch.train import pretrain as pretrain_mod
+    from multilingual_kws_tpu_torch.train.evaluate import featurize_files
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    eager = graphs.disable_graphs
+    rng = np.random.default_rng(14)
+    fe, ff = MicroFrontendTorch(device=dev), MicroFrontendTorch(device=dev, mode="fast")
+    launches, lines, programs = {}, [], {}
+
+    def runs_of(program):
+        return program.eager_calls, program.captures, program.replays
+
+    def same(got, want):
+        return all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)) and len(got) == len(want)
+
+    loud = rng.uniform(0.001, 0.9, (O_CLIPS, 1))
+    audio = torch.from_numpy((rng.normal(0, 0.3, (O_CLIPS, SR)) * loud).clip(-1, 1).astype(np.float32)).to(dev)
+    long16 = torch.from_numpy(np.clip(np.round(rng.normal(0, 3000, (O_LONG_CLIPS, 10 * SR))),
+                                      -32768, 32767).astype(np.int16)).to(dev)
+
+    # 1. the three entry points, graphed (eager call, capture, replay) == the eager twin
+    def thrice(name, call, program, wrappers):
+        with eager():
+            want = call()
+        got, launches[name] = phase_launches(torch, lambda: [call() for _ in range(3)])
+        sync()
+        check(all(torch.equal(g, want) for g in got), f"phase o: {name}: graphed != eager: max |delta| "
+              f"{[float((g - want).abs().max()) for g in got]}")
+        check(runs_of(program) == (1, 1, 2), f"phase o: {name}: runs {runs_of(program)}")
+        check(launches[name] == {w: 3 for w in wrappers}, f"phase o: {name}: launched {launches[name]}")
+        programs[name] = program
+
+    thrice(f"exact features, {O_CLIPS} clips", lambda: fe.features(audio), fe.program("features"),
+           ["clip_features"])
+    thrice(f"exact features_from_int16, {O_LONG_CLIPS} 10 s clips", lambda: fe.features_from_int16(long16),
+           fe.program("features_from_int16"), ["stream_prefix", "stream_suffix"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the program must keep fast mode's GEMM in float32 anyway
+    try:
+        fast_got, launches["fast features"] = phase_launches(torch, lambda: [ff.features(audio) for _ in range(3)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with eager():
+        fast_want = ff.features(audio)
+    check(all(torch.equal(g, fast_want) for g in fast_got) and runs_of(ff.program("features")) == (1, 1, 2),
+          f"phase o: fast features graphed under allow_tf32 != eager without it, or runs "
+          f"{runs_of(ff.program('features'))}")
+    check(launches["fast features"] == {"noise_scan_f32": 3},
+          f"phase o: fast features launched {launches['fast features']}")
+    programs[f"fast features, {O_CLIPS} clips"] = ff.program("features")
+    del fast_got, fast_want
+    lines.append(f"exact features ({O_CLIPS} clips, B1), exact features_from_int16 ({O_LONG_CLIPS} 10 s clips, B6 + "
+                 f"B3) and fast features ({O_CLIPS} clips, B5 and cuFFT; graphed with allow_tf32 on, the eager twin "
+                 "with it off): eager call, capture, replay each == the eager twin, bitwise")
+
+    # the stream in phase c's 30 s chunks, twice: the full chunks' program
+    # and the last chunk's (its own window count)
+    flags = StreamFlags(wav="", ground_truth="", target_keyword="alpha", detection_thresholds=[0.5],
+                        max_chunk_length_sec=O_CHUNK_S)
+
+    def chunks():
+        return [c for c in stream_feature_chunks(wave, SR, flags, frontend=fe)]
+
+    with eager():
+        want = chunks()
+    got, launches["stream chunks"] = phase_launches(torch, lambda: chunks() + chunks())
+    n_chunks, full, last = len(want), want[0].shape[0], want[-1].shape[0]
+    check(same(got, want + want), "phase o: stream chunks graphed != eager")
+    check(runs_of(fe.program("stream_features", full)) == (1, 1, 2 * n_chunks - 3)
+          and runs_of(fe.program("stream_features", last)) == (1, 1, 1),
+          f"phase o: stream programs runs {runs_of(fe.program('stream_features', full))}, "
+          f"{runs_of(fe.program('stream_features', last))}")
+    check(launches["stream chunks"] == {"stream_prefix": 2 * n_chunks, "stream_suffix": 2 * n_chunks},
+          f"phase o: stream chunks launched {launches['stream chunks']}")
+    programs[f"stream_features, {full} windows"] = fe.program("stream_features", full)
+    programs[f"stream_features, {last} windows"] = fe.program("stream_features", last)
+    lines.append(f"stream_features on phase c's stream in {O_CHUNK_S} s chunks ({n_chunks - 1} of {full} windows, one "
+                 f"of {last}), twice: == the eager twin; the {full}-window program 1 eager call, 1 capture, "
+                 f"{2 * n_chunks - 3} replays, the {last}-window one 1, 1, 1")
+    del got, want
+
+    # 2. the callers: realtime, featurize_files, file2spec
+    m_audio = wave[: M_SECONDS * SR]
+
+    def detect(chunk_ms):
+        det = RealtimeDetector("alpha", ft_model, detection_threshold=J_THRESHOLD, frontend=fe, device=dev)
+        step = chunk_ms * SR // 1000
+        return [(d.time_ms, d.confidence) for i in range(0, len(m_audio), step)
+                for d in det.feed(m_audio[i : i + step])]
+
+    rt_captures = {}
+    for chunk_ms in M_CHUNKS_MS:
+        with eager():
+            want = detect(chunk_ms)
+        before = fe.program("features").captures
+        got, launches[f"realtime {chunk_ms} ms"] = phase_launches(torch, lambda: detect(chunk_ms))
+        rt_captures[chunk_ms] = fe.program("features").captures - before
+        check(got == want, f"phase o: realtime {chunk_ms} ms: graphed {got} != eager {want}")
+        check(rt_captures[chunk_ms] == 1, f"phase o: realtime {chunk_ms} ms: {rt_captures[chunk_ms]} captures")
+    lines.append(f"realtime detections on {M_SECONDS} s at {M_CHUNKS_MS} ms feeds (phase e's model) == the eager "
+                 f"twin's; the features program's captures by feed size {rt_captures} (one key a window count)")
+
+    files = ft_corpus["train"] + ft_corpus["val"] + ft_corpus["unknown"]
+    fe_files = MicroFrontendTorch(device=dev)
+    with eager():
+        want = featurize_files(files, frontend=fe_files, batch_size=O_FEAT_BATCH)
+    got, launches["featurize_files"] = phase_launches(torch, lambda: [
+        featurize_files(files, frontend=fe_files, batch_size=O_FEAT_BATCH) for _ in range(2)])
+    n_full = len(files) // O_FEAT_BATCH
+    check(all(np.array_equal(g, want) for g in got), "phase o: featurize_files graphed != eager")
+    check(runs_of(fe_files.program("features")) == (2, 2, 2 * n_full) and len(fe_files.program("features").keys()) == 2,
+          f"phase o: featurize_files runs {runs_of(fe_files.program('features'))}")
+    programs[f"featurize_files, batches of {O_FEAT_BATCH} and 1"] = fe_files.program("features")
+    settings = standard_microspeech_model_settings(3)
+    specs = [[file2spec(settings, f, device=dev) for f in files[:3]] for _ in range(3)]
+    with eager():
+        want_specs = [file2spec(settings, f, device=dev) for f in files[:3]]
+    check(all(np.array_equal(a, b) for run in specs for a, b in zip(run, want_specs)), "phase o: file2spec != eager")
+    lines.append(f"featurize_files on phase e's {len(files)} clips (batches of {O_FEAT_BATCH}: two keys), twice, "
+                 f"and file2spec on 3 clips, three times: == the eager twin")
+
+    # 3. the resident transform: batches and the generator's state
+    def resident_ds():
+        return AudioDataset(settings, ["alpha"], ft_corpus["bg_dir"], ft_corpus["unknown"], unknown_percentage=50.0,
+                            seed=7, device=dev)
+
+    sides = {}
+    for graphed in (True, False):
+        ds = resident_ds()
+        run = lambda ds=ds: list(ds.train_batches_resident(ft_corpus["train"], FT_BATCH, O_RESIDENT))  # noqa: E731
+        if graphed:
+            batches, launches["resident batches"] = phase_launches(torch, run)
+        else:
+            with eager():
+                batches = run()
+        sides[graphed] = (batches, ds)
+    (bg, dg), (be, de) = sides[True], sides[False]
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(bg, be)) and len(bg) == O_RESIDENT,
+          "phase o: resident batches graphed != eager")
+    check(torch.equal(dg.gen.get_state(), de.gen.get_state()), "phase o: the generator moved otherwise than eagerly")
+    check(runs_of(dg._resident_program) == (1, 1, O_RESIDENT - 1),
+          f"phase o: resident runs {runs_of(dg._resident_program)}")
+    check(launches["resident batches"] == {"augment_quantize": O_RESIDENT, "clip_features": O_RESIDENT},
+          f"phase o: resident batches launched {launches['resident batches']}")
+    programs[f"resident transform, batch {FT_BATCH}"] = dg._resident_program
+    lines.append(f"train_batches_resident, {O_RESIDENT} batches of {FT_BATCH}: every batch and label and the "
+                 "generator's state after them == the eager twin's")
+
+    # one BN calibration: pretrain(resident_data=True) with two calibration
+    # batches through the resident program, under phase i's NCCL group and
+    # deterministic cuDNN (its epoch is an EpochGraph on both sides)
+    config = pretrain_mod.PretrainConfig(num_labels=PT_WORDS + 1, batch_size=PT_BATCH, num_epochs=1,
+                                         steps_per_epoch=N_STEPS, bn_calibration_batches=2, resident_data=True,
+                                         device=str(dev))
+    base = lecun_init_(make_embedding_model(PT_WORDS + 1, device="cpu"), seed=0)
+    twins = {}
+    with deterministic_cudnn(torch):
+        for graphed in (True, False):
+            def run():
+                return pretrain_mod.pretrain(pt_corpus["train"], pt_corpus["val"], pt_corpus["words"],
+                                             pt_corpus["bg_dir"], config=config, model=copy.deepcopy(base), verbose=0)
+
+            if graphed:
+                (model, hist, ds), launches["pretrain calibration"] = phase_launches(torch, run)
+                check(runs_of(ds._resident_program) == (1, 1, 1),
+                      f"phase o: calibration runs {runs_of(ds._resident_program)}")
+                programs["pretrain's calibration batches"] = ds._resident_program
+            else:
+                with eager():
+                    model, hist, ds = run()
+            twins[graphed] = (model.state_dict(), hist, ds.gen.get_state())
+    (sg, hg, gg), (se, he, ge) = twins[True], twins[False]
+    diff = tensor_diffs(torch, sg, se)
+    check(not diff and hg == he and torch.equal(gg, ge), f"phase o: pretrain's calibration graphed != eager: {diff}")
+    n_val = -(-len(pt_corpus["val"]) // PT_BATCH)
+    check(launches["pretrain calibration"] == {"augment_quantize": N_STEPS + 2, "clip_features": N_STEPS + 2 + n_val},
+          f"phase o: pretrain launched {launches['pretrain calibration']}")
+    lines.append(f"pretrain(resident_data=True), 1 epoch of {N_STEPS} steps and BN calibration on 2 resident-program "
+                 f"batches: the model (BN statistics included), history and generator == the eager twin's")
+    del base, model, twins, sg, se
+
+    # 4. profiled replays of each program in a fresh process: every kernel
+    # launched by cudaGraphLaunch, at most once a replay, and each replay
+    # counted as one launch of each of its wrappers
+    replayed = fresh_graph_launchers(ft_corpus, full)
+    for name, got in replayed.items():
+        for kernel, hosts in got["by"].items():
+            check(hosts and all("GraphLaunch" in h for h in hosts) and sum(hosts.values()) <= O_TRACE_REPS,
+                  f"phase o: {name}: {kernel} launched by {hosts} in {O_TRACE_REPS} replays")
+        want = {k.removesuffix("_kernel"): got["calls"] for k in got["by"]}
+        check(got["wrapper_launches"] == want,
+              f"phase o: {name}: {got['calls']} replays counted {got['wrapper_launches']}, not {want}")
+    lines.append(f"profiled replays in a fresh process ({O_TRACE_REPS} a trace), every kernel launched by "
+                 f"cudaGraphLaunch, each replay one launch of each wrapper: "
+                 + "; ".join(f"{n} {g['by']}" for n, g in replayed.items()))
+
+    ds_r = dg
+    made = ds_r.build_resident_bank(ft_corpus["train"])
+    bank = made["bank"]
+    idx, _, sil = ds_r._put_batch(next(ds_r.host_train_indices(ft_corpus["train"], FT_BATCH, 1, made)))
+    for _ in range(2):  # the new bank's eager call and capture
+        ds_r.resident_specs(bank, idx, sil)
+
+    # 5. timings, graphed against eager in turns
+    def turns(sides, timed):
+        out = {name: [] for name in sides}
+        for turn in range(O_TURNS):
+            for name in (list(sides) if turn % 2 == 0 else list(sides)[::-1]):
+                sync()
+                t0 = time.perf_counter()
+                timed(sides[name])
+                sync()
+                out[name].append(time.perf_counter() - t0)
+        return out
+
+    feed_ms = {}
+    eager_fe = _EagerFeatures(fe)
+    for chunk_ms in M_CHUNKS_MS:
+        step = chunk_ms * SR // 1000
+        feed_ms[chunk_ms] = {"graphed": [], "eager": []}
+        for turn in range(O_TURNS):
+            for side in (("graphed", "eager") if turn % 2 == 0 else ("eager", "graphed")):
+                det = RealtimeDetector("alpha", ft_model, detection_threshold=J_THRESHOLD,
+                                       frontend=fe if side == "graphed" else eager_fe, device=dev)
+                det.feed(wave[:SR])
+                for i in range(M_FEEDS + 2):
+                    sync()
+                    t0 = time.perf_counter()
+                    det.feed(wave[SR + i * step : SR + (i + 1) * step])
+                    sync()
+                    if i >= 2:
+                        feed_ms[chunk_ms][side].append((time.perf_counter() - t0) * 1e3)
+    def on_side(run):
+        return lambda graphed: run() if graphed else eager_run(run)
+
+    def eager_run(run):
+        with eager():
+            return run()
+
+    feat_s = turns({"graphed": True, "eager": False}, on_side(
+        lambda: featurize_files(files, frontend=fe_files, batch_size=O_FEAT_BATCH)))
+    fast_s = turns({"graphed": True, "eager": False}, on_side(lambda: ff.features(audio)))
+    res_s = turns({"graphed": True, "eager": False}, on_side(
+        lambda: [ds_r.resident_specs(bank, idx, sil) for _ in range(O_RESIDENT_ITERS)]))
+
+    def spread(v, scale=1.0, fmt="{:.3f}"):
+        v = np.asarray(v) * scale
+        return f"median {fmt.format(np.median(v))} ({fmt.format(v.min())}-{fmt.format(v.max())})"
+
+    for line in lines:
+        print(f"phase o: {line}")
+    for name, program in programs.items():
+        pool = program.pool_bytes()
+        print(f"phase o: program {name}: eager calls {program.eager_calls}, captures {program.captures}, replays "
+              f"{program.replays}, capture {program.capture_s:.3f} s, pool "
+              + (f"{pool / 2**20:.1f} MiB" if pool is not None else "not measured"))
+    for chunk_ms, f in feed_ms.items():
+        desc = "; ".join(f"{side} p50 {np.percentile(f[side], 50):.3f} p99 {np.percentile(f[side], 99):.3f}"
+                         for side in ("graphed", "eager"))
+        print(f"phase o: realtime {chunk_ms} ms feeds ({chunk_ms // 20} windows), ms a feed over {O_TURNS} x {M_FEEDS} "
+              f"feeds, the predict graphed on both sides, the frontend graphed against eager: {desc}")
+    print(f"phase o: featurize_files ({len(files)} clips, batches of {O_FEAT_BATCH}), s over {O_TURNS} turns: graphed "
+          f"{spread(feat_s['graphed'], fmt='{:.4f}')}, eager {spread(feat_s['eager'], fmt='{:.4f}')}")
+    print(f"phase o: fast features at {O_CLIPS} clips, ms over {O_TURNS} turns: graphed "
+          f"{spread(fast_s['graphed'], 1e3)}, eager {spread(fast_s['eager'], 1e3)}")
+    print(f"phase o: one resident batch of {FT_BATCH}, ms over {O_TURNS} turns of {O_RESIDENT_ITERS}: graphed "
+          f"{spread(res_s['graphed'], 1e3 / O_RESIDENT_ITERS, '{:.4f}')}, eager "
+          f"{spread(res_s['eager'], 1e3 / O_RESIDENT_ITERS, '{:.4f}')}")
+    print(f"phase o: launches by path {launches}")
+    print(f"phase o: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3873,11 +4327,12 @@ def main() -> int:
     phase_m = graph_phase(torch, fe, model, ft_model, wave, Path(work.name))
     # (n) the per-step programs as CUDA graphs
     phase_n = step_program_phase(torch, pt_corpus, corpus, ft_model, Path(work.name))
+    # (o) the frontend's entry points and the resident transform as CUDA graphs
+    phase_o = frontend_program_phase(torch, ft_model, wave, corpus, pt_corpus)
     for k in kernels:
         wrapper = "stream_prefix" if k["name"] == "stream_prefix_clips" else k["name"]
-        k["phase_l_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_l.items()}
-        k["phase_m_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_m.items()}
-        k["phase_n_launches"] = {path: counts.get(wrapper, 0) for path, counts in phase_n.items()}
+        for phase, by_path in (("l", phase_l), ("m", phase_m), ("n", phase_n), ("o", phase_o)):
+            k[f"phase_{phase}_launches"] = {path: counts.get(wrapper, 0) for path, counts in by_path.items()}
     work.cleanup()
     if "--profile" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:

@@ -21,15 +21,18 @@ host batch uploaded per step, prefetched on a thread) and the resident one
 (``train_batches_resident``: the clips uploaded once, indices per step), go
 through one device transform (``augment_featurize``) and consume the
 generator alike, so one seed gives them identical specs. The streaming
-pipeline's transform of an uploaded batch and the eval featurization are
-programs (``train/graphs.ProgramGraphs``: on the card a CUDA graph per batch
-shape after one eager call, B4 and B1 inside it), the counterparts of the
-JAX package's jitted ``train`` and ``eval_fn`` (``_jitted_device_fns``); the
-transform is a program of its own, apart from the training step, as in the
-JAX package, because BN calibration and other trainers take its batches
-too. Pretraining and the fine-tune run the resident pipeline's transform
-inside the program of their step or epoch (``train/pretrain.py``,
-``train/steps.py``); ``train_batches_resident`` runs it eagerly.
+pipeline's transform of an uploaded batch, the resident pipeline's
+transform of bank rows and the eval featurization are programs
+(``train/graphs.ProgramGraphs``: on the card a CUDA graph per batch shape
+after one eager call, B4 and B1 inside it), the counterparts of the JAX
+package's jitted ``train``, ``resident`` and ``eval_fn``
+(``_jitted_device_fns``); the transforms are programs of their own, apart
+from the training step, as in the JAX package, because BN calibration and
+other trainers take their batches too. The resident transform reads the
+bank and the background bank in place (``resident`` arguments, keyed by
+their storage): no step copies the corpus. Pretraining and the fine-tune
+run the resident transform's eager function inside the program of their
+step or epoch (``train/pretrain.py``, ``train/steps.py``).
 
 Data parallelism (``shard=(rank, world_size)``, ``parallel/mesh.py``): every
 process makes the same host draw of the global batch and the same device
@@ -68,11 +71,11 @@ from ..utils.wav import read_wav, read_wav_int16
 
 def file2spec(model_settings, filepath, device="cuda") -> np.ndarray:
     """One wav path -> (49, 40) float32 features (reference file2spec,
-    input_data.py:38-47). Batch work should use
-    train/evaluate.featurize_files instead."""
+    input_data.py:38-47), through the frontend's ``features`` program.
+    Batch work should use train/evaluate.featurize_files instead."""
     fe = cached_stream_frontend(model_settings.sample_rate, str(resolve_device(device)))
     audio, _ = read_wav(filepath, desired_samples=model_settings.desired_samples)
-    return fe.features(torch.from_numpy(audio[None, :]).to(fe.device))[0].cpu().numpy()
+    return fe.features(audio[None, :])[0].cpu().numpy()
 
 
 @functools.lru_cache(maxsize=8)
@@ -191,6 +194,8 @@ class AudioDataset:
         # dataset owns its programs)
         ref = weakref.ref(self)
         self._train_program = ProgramGraphs(lambda wav, sil: ref()._train_upload(wav, sil), generators=[self.gen])
+        self._resident_program = ProgramGraphs(lambda *a: ref()._train_resident(*a), generators=[self.gen],
+                                               device=self.device, resident=(0, 3, 4))
         self._eval_program = ProgramGraphs(lambda wav: ref()._eval_device(wav))
 
     # -- device functions -----------------------------------------------------
@@ -211,6 +216,19 @@ class AudioDataset:
         # uploaded clips
         rows = torch.arange(-keep.start, b - keep.start, dtype=torch.int32, device=wav.device)
         return self._train_device(wav, rows, is_silence, keep)
+
+    def _train_resident(self, fg_bank, rows, is_silence, bg_data, bg_sizes):
+        """The resident pipeline's transform: the global batch's (B,) rows
+        of the int16 bank and silence flags -> this process's specs."""
+        keep = self._keep(is_silence.shape[0])
+        return augment_featurize(self.frontend, self.aug_params, self.gen, fg_bank, rows, is_silence,
+                                 bg_data, bg_sizes, keep)
+
+    def resident_specs(self, fg_bank, rows, is_silence):
+        """This process's specs of a global batch's (B,) bank rows and
+        silence flags, through the resident transform's program (the bank
+        and the background bank read in place)."""
+        return self._resident_program(fg_bank, rows, is_silence, self.bg_data, self.bg_sizes)
 
     def _keep(self, batch_size: int) -> slice:
         """This process's rows of a global training batch."""
@@ -343,14 +361,15 @@ class AudioDataset:
     ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         """train_batches with the clips already on the device
         (build_resident_bank): same draws, same augmentation, same specs, but
-        each step uploads only (indices, labels, silence flags)."""
+        each step uploads only (indices, labels, silence flags), and the
+        transform is the resident program (``resident_specs``)."""
         bank = bank or self.build_resident_bank(files)
         keep = self._keep(batch_size)
         for idx, lbl, sil in self.host_train_indices(
             files, batch_size, num_steps, bank, labels=labels, single_target=single_target
         ):
             idx, lbl, sil = self._put_batch((idx, lbl[keep], sil))
-            yield self._train_device(bank["bank"], idx, sil, keep), lbl
+            yield self.resident_specs(bank["bank"], idx, sil), lbl
 
     def host_train_batches(
         self,

@@ -45,7 +45,9 @@ JOIN_TIMEOUT_S = 180
 
 class EntryForward(nn.Module):
     """1-second float waveforms (B, 16000) in [-1, 1] -> (B, 761) logits:
-    the exact frontend, then the embedding classifier."""
+    the exact frontend, then the embedding classifier. Eager throughout
+    (``features_eager``, not the frontend's program): a caller compiles or
+    graphs this forward itself."""
 
     def __init__(self, model: nn.Module, frontend):
         super().__init__()
@@ -54,7 +56,7 @@ class EntryForward(nn.Module):
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         with exact_float32():
-            return self.model(self.frontend.features(audio)[..., None])
+            return self.model(self.frontend.features_eager(audio)[..., None])
 
 
 def entry(device="cuda"):

@@ -25,17 +25,28 @@ tensor, with the clip's signal kept in shared memory between them.
 Streaming computes the prefix once per 20 ms hop for the whole stream; each
 window then runs only the suffix over its 49 rows, with the noise state
 restarting at the window start (``stream_features``).
+
+The three entry points, ``features``, ``features_from_int16`` and
+``stream_features``, are programs (``train/graphs.ProgramGraphs``), the
+counterparts of ``MicroFrontendJax``'s jitted ``_features_jit``,
+``_features_i16_jit`` and ``_stream_jit``: on a card one CUDA graph per
+input shape after one eager call, and one program per ``num_windows`` of
+the stream (its jit's static argument). Each runs on the frontend's device
+and keeps its tables there. Inside another program or an epoch step they
+run their eager twins (``features_eager``, ...), which that graph records.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..train.graphs import MAX_SHAPES, ProgramGraphs, _ProgramCache, inside_program
 from . import cuda_clip, cuda_fast, cuda_fft, cuda_frontend, micro_fast
 from . import micro_int as mi
 from .micro_exact import NOISE_REDUCTION_BITS, FrontendConfig, MicroFrontend, _LOG_LUT
@@ -138,8 +149,11 @@ class MicroFrontendTorch:
     """Batched micro frontend on one device.
 
     ``features(audio)``: (..., samples) float in [-1, 1] -> (..., F, C)
-    float32 features on the reference 10/256 scale. Inputs may be numpy
-    arrays (moved to ``device``) or tensors (computed where they lie).
+    float32 features on the reference 10/256 scale. The entry points
+    (``features``, ``features_from_int16``, ``stream_features``) run on
+    ``device`` whatever the input is (a numpy array, a tensor anywhere) and
+    return tensors there; their eager twins (``features_eager``, ...) take
+    numpy arrays to ``device`` and compute tensors where they lie.
 
     ``mode="exact"`` (the default) is bit-exact to the TFLite op.
     ``mode="fast"`` is the JAX package's fast mode (``ops/micro_fast.py``):
@@ -194,6 +208,8 @@ class MicroFrontendTorch:
         self._tables: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
         self._fast_host = micro_fast.fast_host_tables(host, config) if mode == "fast" else {}
         self._fast_tables: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        # entry point (and num_windows) -> its program, least recently used first
+        self._programs = _ProgramCache()
 
     def tables(self, device, dtype=torch.int64) -> Dict[str, torch.Tensor]:
         """The frontend's integer tables as contiguous tensors on ``device``
@@ -260,9 +276,58 @@ class MicroFrontendTorch:
 
     # -- public entry points ---------------------------------------------------
 
+    def program(self, entry: str, num_windows: Optional[int] = None) -> ProgramGraphs:
+        """The program of an entry point on the frontend's device, cached on
+        the frontend: "features", "features_from_int16", or
+        "stream_features" at ``num_windows`` (a program a window count, of
+        which the ``MAX_SHAPES`` used last are kept). Its ``fn`` is the
+        entry point's eager twin."""
+        key = entry if entry != "stream_features" else (entry, int(num_windows))
+        prog = self._programs.pop(key, None)
+        if prog is None:
+            ref = weakref.ref(self)  # the frontend owns its programs
+            if entry == "features":
+                fn = lambda x: ref().features_eager(x)  # noqa: E731
+            elif entry == "features_from_int16":
+                fn = lambda x: ref().features_from_int16_eager(x)  # noqa: E731
+            elif entry == "stream_features":
+                fn = lambda x, n=key[1]: ref().stream_features_eager(x, n)  # noqa: E731
+            else:
+                raise ValueError(f"no entry point {entry!r}")
+            prog = ProgramGraphs(fn, device=self.device)
+        self._programs[key] = prog  # the most recently used last
+        counts = [k for k in self._programs if isinstance(k, tuple)]
+        for old in counts[: max(0, len(counts) - MAX_SHAPES)]:
+            del self._programs[old]
+        return prog
+
     def features_from_int16(self, audio_int16) -> torch.Tensor:
         """(..., samples) int16, or a wider integer type holding int16
-        values, -> (..., F, C) float32, 10/256 scale.
+        values, -> (..., F, C) float32, 10/256 scale, through the
+        program (``features_from_int16_eager`` inside another program)."""
+        if inside_program():
+            return self.features_from_int16_eager(audio_int16)
+        return self.program("features_from_int16")(self._as_int16(_host_or_tensor(audio_int16)))
+
+    def features(self, audio_float) -> torch.Tensor:
+        """(..., samples) float waveform in [-1, 1] -> (..., F, C) features,
+        through the program (``features_eager`` inside another program)."""
+        if inside_program():
+            return self.features_eager(audio_float)
+        return self.program("features")(_host_or_tensor(audio_float))
+
+    def stream_features(self, audio_int16, num_windows: int) -> torch.Tensor:
+        """Long audio (samples,) -> (num_windows, F, C) per-window features,
+        through the program of ``num_windows`` (``stream_features_eager``
+        inside another program)."""
+        if inside_program():
+            return self.stream_features_eager(audio_int16, num_windows)
+        return self.program("stream_features", num_windows)(_host_or_tensor(audio_int16))
+
+    # -- eager twins ---------------------------------------------------------------
+
+    def features_from_int16_eager(self, audio_int16) -> torch.Tensor:
+        """``features_from_int16``, eagerly.
 
         Clip-scale audio (``cuda_clip.fits``) takes the fused
         ``clip_features`` kernel; longer audio the prefix and the suffix, as
@@ -295,16 +360,15 @@ class MicroFrontendTorch:
             raise ValueError("features_from_int16: audio values outside the int16 range")
         return audio.to(torch.int16).contiguous()
 
-    def features(self, audio_float) -> torch.Tensor:
-        """(..., samples) float waveform in [-1, 1] -> (..., F, C) features:
-        the saturating float->int16 cast of to_micro_spectrogram, then the
-        frontend, scaled by 10/256."""
+    def features_eager(self, audio_float) -> torch.Tensor:
+        """``features``, eagerly: the saturating float->int16 cast of
+        to_micro_spectrogram, then the frontend, scaled by 10/256."""
         x = self._as_tensor(audio_float)
         i16 = torch.clamp(torch.trunc(x.to(torch.float32) * 32768.0), -32768.0, 32767.0)
-        return self.features_from_int16(i16.to(torch.int16))
+        return self.features_from_int16_eager(i16.to(torch.int16))
 
-    def stream_features(self, audio_int16, num_windows: int) -> torch.Tensor:
-        """Long audio (samples,) -> (num_windows, F, C) per-window features.
+    def stream_features_eager(self, audio_int16, num_windows: int) -> torch.Tensor:
+        """``stream_features``, eagerly.
 
         The prefix runs once per hop over the whole stream; window w is rows
         w..w+F-1 of it with the noise state restarting at row w, like the
@@ -318,6 +382,14 @@ class MicroFrontendTorch:
         return cuda_frontend.stream_suffix(
             base, num_windows, 1, self.clip_frames, self, scaled=True
         )
+
+
+def _host_or_tensor(audio) -> torch.Tensor:
+    """A tensor as it is; an array as a host tensor (the program uploads
+    it into its static input)."""
+    if isinstance(audio, torch.Tensor):
+        return audio
+    return torch.from_numpy(np.ascontiguousarray(audio))
 
 
 @functools.lru_cache(maxsize=8)

@@ -5,8 +5,9 @@ equivalent of the reference's batch_streaming_analysis.py): ``StreamFlags``,
 ``StreamTarget``, ``calculate_streaming_accuracy`` and ``eval_stream_test``.
 
 - The stateless frontend stages run once over the whole stream and the
-  windows share them (``MicroFrontendTorch.stream_features``); the windows
-  stay on the device.
+  windows share them (``MicroFrontendTorch.stream_features``, a program a
+  chunk's window count: on a card one CUDA graph); the windows stay on the
+  device.
 - The model sees one batch shape: the last batch is zero-padded and its pad
   rows' predictions are sliced off. A model is served by its predict
   program: on a card one CUDA graph, replayed for every batch.
@@ -80,7 +81,9 @@ def stream_feature_chunks(
     windows on the device, chunked by max_chunk_length_sec.
 
     The windows match the reference: range(0, len(audio) - clip_samples,
-    stride_samples). The audio goes to the device once per chunk, as int16."""
+    stride_samples). The audio goes to the device once per chunk, as int16,
+    into the frontend's ``stream_features`` program of the chunk's window
+    count."""
     frontend = frontend or cached_stream_frontend(int(sample_rate), str(resolve_device(device)))
     clip_samples = int(flags.clip_duration_ms * sample_rate / 1000)
     stride_samples = int(flags.clip_stride_ms * sample_rate / 1000)
@@ -96,8 +99,7 @@ def stream_feature_chunks(
         n_w = min(max_chunk_windows, num_windows - w)
         start = w * stride_samples
         end = start + (n_w - 1) * stride_samples + clip_samples
-        chunk = torch.from_numpy(i16[start:end]).to(frontend.device)
-        yield frontend.stream_features(chunk, n_w)
+        yield frontend.stream_features(i16[start:end], n_w)
         w += n_w
 
 

@@ -6,9 +6,10 @@ detector window (100 ms) behind real time.
 
 A host buffer holds the float32 samples that future windows still need.
 Every ``clip_stride`` new samples complete one window; the windows a
-``feed()`` completes go to the device in one upload, through the frontend
-in one call (on a card the fused ``clip_features`` kernel) and through the
-predict function in one batch, and only their (B, 3) softmax rows come back
+``feed()`` completes go to the device in one upload, through the frontend's
+``features`` program in one call (on a card one CUDA graph of the fused
+``clip_features`` kernel a window count) and through the predict function
+in one batch, and only their (B, 3) softmax rows come back
 to the host, for the reference's averaging and suppression detector
 (``stream/detector.SingleTargetRecognizeCommands``). The buffer stays
 float32 so that each window takes the same saturating float -> int16 cast

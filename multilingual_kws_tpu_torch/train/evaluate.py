@@ -29,12 +29,14 @@ from ..utils.wav import read_wav
 
 
 def _featurize(files, frontend, desired_samples, batch_size, device) -> torch.Tensor:
-    """wav paths -> (N, 49, 40) float32 features on the frontend's device."""
+    """wav paths -> (N, 49, 40) float32 features on the frontend's device,
+    each batch through the frontend's ``features`` program (a key for the
+    full batches, one for the last)."""
     frontend = frontend or cached_stream_frontend(16000, str(resolve_device(device)))
     out = []
     for i in range(0, len(files), batch_size):
         wavs = np.stack([read_wav(f, desired_samples=desired_samples)[0] for f in files[i : i + batch_size]])
-        out.append(frontend.features(torch.from_numpy(wavs).to(frontend.device)))
+        out.append(frontend.features(wavs))
     if not out:
         return torch.zeros((0, 49, 40), dtype=torch.float32, device=frontend.device)
     return torch.cat(out, dim=0)

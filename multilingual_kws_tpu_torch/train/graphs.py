@@ -50,7 +50,9 @@ once per input shape: the inference entry points
 ``analysis/distance_filtering.make_embedding_fn``, the bench's steps), the
 per-step training programs (``make_pretrain_step``'s and
 ``make_finetune_step``'s step and evaluate, the fused resident step, the
-dataset's train and eval transforms, validation) and ``kmeans_fit``.
+dataset's train, resident-train and eval transforms, validation),
+``kmeans_fit`` and the frontend's entry points (``features``,
+``features_from_int16``, ``stream_features``).
 ``ProgramGraphs`` is their counterpart: one CUDA graph per key (the
 arguments' shapes, dtypes and devices, the generators they draw from, the
 addresses of the modules' parameters and buffers and of the optimizer's
@@ -61,6 +63,15 @@ callable that the inference entry points return. A program is never called
 inside another capture: an epoch's step is the program's eager function,
 ``program.fn``. ``disable_graphs()`` runs every program eagerly, as
 ``jax.disable_jit()`` runs jitted functions.
+
+The frontend's entry points (``ops/micro_torch.MicroFrontendTorch``) are
+programs of their own that code inside another program or an epoch step
+also calls: there (``inside_program()``) they run their eager function,
+which the enclosing graph records, as a jitted function called inside
+another jitted function is inlined. A program can run on a device of its
+own, whatever device its arguments lie on, and can read some tensor
+arguments in place (``resident``: a corpus bank, keyed by its storage like
+a weight, never copied into a static input).
 """
 
 from __future__ import annotations
@@ -159,7 +170,7 @@ class EpochGraph:
     def _one_step(self):
         c = self._counter
         idx, lbl, sil = (t.index_select(0, c)[0] for t in self._inputs)
-        loss, acc = self.step(idx, lbl, sil)
+        loss, acc = _inside(self.step, idx, lbl, sil)
         self._losses.index_copy_(0, c, loss.reshape(1).to(torch.float32))
         self._accs.index_copy_(0, c, acc.reshape(1).to(torch.float32))
         c.add_(1)
@@ -233,6 +244,26 @@ MAX_SHAPES = 8
 
 # set inside ``disable_graphs()``
 _GRAPHS_OFF = contextvars.ContextVar("graphs_off", default=False)
+# set while a program's or an epoch step's function runs
+_INSIDE = contextvars.ContextVar("inside_program", default=False)
+
+
+def inside_program() -> bool:
+    """Whether the caller runs inside a program's or an epoch step's
+    function (its eager call, its capture, or its plain run on the CPU),
+    where another program must not be called: code that runs both there
+    and outside, as the frontend's entry points do, calls its eager
+    function there, and the enclosing graph records it."""
+    return _INSIDE.get()
+
+
+def _inside(fn: Callable, *args):
+    """``fn(*args)`` with ``inside_program()`` true."""
+    token = _INSIDE.set(True)
+    try:
+        return fn(*args)
+    finally:
+        _INSIDE.reset(token)
 
 
 @contextlib.contextmanager
@@ -311,6 +342,10 @@ class ProgramGraphs:
     training step, the optimizer ``fn`` steps. generators: the generators
     ``fn`` draws from besides its generator arguments. train: the modules'
     mode (``module.train(train)``) set before each call; None leaves it.
+    device: where every call runs, whatever device the arguments lie on
+    (None: the modules' device, without parameters the first argument's).
+    resident: the positions of tensor arguments read in place, which must
+    lie on the program's device (a corpus bank).
 
     - The key is the tensor arguments' shapes, dtypes and devices, the
       generator arguments' identities, and the training flag and
@@ -321,6 +356,12 @@ class ProgramGraphs:
       ``load_state_dict(assign=True)``, a swap of ``.data``, new optimizer
       state) gives a new key and drops the old weights' graphs, so a graph
       never replays against storage that was freed.
+    - A resident argument is keyed like a weight, by its ``data_ptr()``
+      (and its shape, dtype and device): the graph reads it where it lies,
+      so an in-place edit keeps the key and the replay reads the edit, and
+      new storage is a new key that drops the old storage's graphs. It is
+      never copied: a graph holds a reference to what it reads for as long
+      as the graph lives.
     - A key's first call runs eagerly, on a side stream: the warm-up
       (cuDNN's choice of algorithm, the kernels' lazy build, the frontend's
       tables, the optimizer's lazy state, a process group's communicator),
@@ -328,8 +369,8 @@ class ProgramGraphs:
       under is taken after that call, once the optimizer's state exists.
       The second call captures, in one private memory pool that the
       program's graphs share, and replays; later calls copy their tensor
-      arguments into the graph's static inputs (from any device: a host
-      array is uploaded into them) and replay. Every call takes its step
+      arguments but the resident ones into the graph's static inputs (from
+      any device: a host array is uploaded into them) and replay. Every call takes its step
       once, in order, as an eager loop takes it. The outputs are fresh
       tensors, cloned out of the graph's memory before the next replay can
       overwrite it; replays run in turn on the current stream.
@@ -344,24 +385,26 @@ class ProgramGraphs:
     - Launches of a kernel wrapper inside the capture count in its
       ``captured``; each replay adds them to its ``launches``.
     - There is no fallback: on a card a capture or a replay that fails
-      raises. A program must not be called inside another capture (an
-      ``EpochGraph``'s step calls ``fn``).
+      raises. A program called inside another program's or an epoch step's
+      function raises (an ``EpochGraph``'s step calls ``fn``; see
+      ``inside_program``).
 
-    The program runs on its modules' device (without parameters: its first
-    argument's). On the CPU there is no graph: every call is ``fn``, and the
-    keys and their order are kept as on a card. ``eager_calls``,
+    On the CPU there is no graph: every call is ``fn``, and the keys and
+    their order are kept as on a card. ``eager_calls``,
     ``captures``, ``replays`` and ``capture_s`` (seconds, summed) say how
     the calls ran."""
 
     def __init__(self, fn: Callable, modules: Sequence[torch.nn.Module] = (), max_shapes: int = MAX_SHAPES,
                  optimizer: Optional[torch.optim.Optimizer] = None, generators: Sequence[torch.Generator] = (),
-                 train: Optional[bool] = None):
+                 train: Optional[bool] = None, device=None, resident: Sequence[int] = ()):
         self.fn = fn
         self._modules = [weakref.ref(m) for m in modules]
         self.max_shapes = max_shapes
         self.optimizer = optimizer
         self.generators = list(generators)
         self.train = train
+        self._device = device
+        self.resident = frozenset(resident)
         self._graphed: "OrderedDict[tuple, _Graphed]" = OrderedDict()
         self._pool = None
         self.eager_calls = 0
@@ -383,6 +426,7 @@ class ProgramGraphs:
         if self.optimizer is not None:
             weights.extend(t.data_ptr() for state in self.optimizer.state.values()
                            for t in state.values() if isinstance(t, torch.Tensor))
+        weights.extend(args[i].data_ptr() for i in sorted(self.resident))
         return tuple(_arg_key(a) for a in args), tuple(weights)
 
     def keys(self):
@@ -390,8 +434,10 @@ class ProgramGraphs:
         return list(self._graphed)
 
     def device(self, *args) -> torch.device:
-        """Where a call on ``args`` runs: the modules' device, else the first
-        argument's."""
+        """Where a call on ``args`` runs: the program's device, else the
+        modules', else the first argument's."""
+        if self._device is not None:
+            return resolved_device(self._device)
         for m in self._live_modules():
             for p in m.parameters():
                 return resolved_device(p.device)
@@ -403,8 +449,14 @@ class ProgramGraphs:
                 if any(mod.training != self.train for mod in m.modules()):  # reading is cheaper than setting
                     m.train(self.train)
         dev = self.device(*args)
+        for i in self.resident:
+            if not isinstance(args[i], torch.Tensor) or resolved_device(args[i].device) != dev:
+                raise ValueError(f"argument {i} is read in place on {dev}: pass a tensor there, not "
+                                 f"{getattr(args[i], 'device', type(args[i]).__name__)}")
         if _GRAPHS_OFF.get():
-            return self.fn(*_on(dev, args))
+            return _inside(self.fn, *_on(dev, args))
+        if _INSIDE.get():
+            raise RuntimeError("a program called inside another program or an epoch step: call its fn")
         prog = self._graphed.get(self.key(*args))
         if prog is None or dev.type != "cuda":
             out = self._eager(dev, args)
@@ -412,8 +464,8 @@ class ProgramGraphs:
             return out
         if prog.graph is None:
             self._capture(prog, args, dev)
-        for buf, a in zip(prog.inputs, args):
-            if isinstance(buf, torch.Tensor):
+        for i, (buf, a) in enumerate(zip(prog.inputs, args)):
+            if isinstance(buf, torch.Tensor) and i not in self.resident:
                 buf.copy_(a)
         prog.graph.replay()
         self.replays += 1
@@ -426,8 +478,8 @@ class ProgramGraphs:
     def _eager(self, dev: torch.device, args):
         self.eager_calls += 1
         if dev.type != "cuda":
-            return self.fn(*_on(dev, args))
-        out = on_side_stream(dev, lambda: self.fn(*_on(dev, args)))
+            return _inside(self.fn, *_on(dev, args))
+        out = on_side_stream(dev, lambda: _inside(self.fn, *_on(dev, args)))
         current = torch.cuda.current_stream(dev)
         # made on the side stream, read on this one
         _map_tensors(lambda t: t.record_stream(current), out)
@@ -448,13 +500,14 @@ class ProgramGraphs:
 
     def _capture(self, prog: _Graphed, args, dev: torch.device) -> None:
         with torch.inference_mode(False):  # static inputs take copies whatever mode a later call is in
-            prog.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=dev) if isinstance(a, torch.Tensor)
-                                else a for a in args)
+            prog.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=dev)
+                                if isinstance(a, torch.Tensor) and i not in self.resident else a
+                                for i, a in enumerate(args))
         if not any(g.graph is not None for g in self._graphed.values()):
             # a pool lives while a graph uses it: with none left, a new one
             self._pool = torch.cuda.graph_pool_handle()
         generators = self.generators + [a for a in args if isinstance(a, torch.Generator)]
-        prog.graph, prog.outputs, prog.per_replay, seconds = capture(lambda: self.fn(*prog.inputs), dev,
+        prog.graph, prog.outputs, prog.per_replay, seconds = capture(lambda: _inside(self.fn, *prog.inputs), dev,
                                                                      pool=self._pool, generators=generators)
         if self.optimizer is not None:
             prog.grads = [(p, p.grad) for group in self.optimizer.param_groups for p in group["params"]]

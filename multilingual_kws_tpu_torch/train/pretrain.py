@@ -292,7 +292,7 @@ def pretrain(
             return
         idx, lbl, sil = resident_draws(num_steps)
         for i in range(num_steps):
-            yield dataset._train_device(bank["bank"], idx[i], sil[i], keep), lbl[i, keep]
+            yield dataset.resident_specs(bank["bank"], idx[i], sil[i]), lbl[i, keep]
 
     drop = torch.Generator(device=dev)
     drop.manual_seed(config.shuffle_seed + 1)

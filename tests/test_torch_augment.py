@@ -50,6 +50,17 @@ from multilingual_kws_tpu_torch.ops.augment import (
 from multilingual_kws_tpu_torch.settings import standard_microspeech_model_settings
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fixture(b=24, t=16000, seed=0):
     """tests/test_pallas_augment.py's fixture: speech-level int16 clips, one
     silence row (zeroed), three background clips of which two barely longer

@@ -40,6 +40,18 @@ from multilingual_kws_tpu_torch.train import checkpoints as ck
 from multilingual_kws_tpu_torch.train import finetune
 from multilingual_kws_tpu_torch.utils.wav import read_wav
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDTH, DEPTH = 0.25, 0.1
 THRESHOLDS = [0.3, 0.5, 0.7, 0.9]
 

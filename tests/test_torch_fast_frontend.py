@@ -41,6 +41,18 @@ from multilingual_kws_tpu_torch.settings import standard_microspeech_model_setti
 from multilingual_kws_tpu_torch.train.evaluate import evaluate_files_single_target
 from multilingual_kws_tpu_torch.train.finetune import transfer_learn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STEP = 10.0 / 256.0
 CONFIGS = {
     "default": {},

@@ -17,6 +17,17 @@ from multilingual_kws_tpu_torch.ops import cuda_fft
 from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fe():
     return MicroFrontendTorch(device="cpu")

@@ -49,6 +49,18 @@ from multilingual_kws_tpu_torch.train.finetune import (
     transfer_learn,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PHASES = {"head_only": (_head_only, jax_finetune._head_only), "head_and_top": (_head_and_top, jax_finetune._head_and_top)}
 
 

@@ -25,6 +25,18 @@ from multilingual_kws_tpu_torch.ops import micro_int as mi
 from multilingual_kws_tpu_torch.ops.micro_exact import FrontendConfig
 from multilingual_kws_tpu_torch.ops.micro_torch import KissFftrTorch, MicroFrontendTorch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = Path(__file__).parent / "golden" / "microfrontend_golden.npz"
 WAVEFORMS = [
     "zeros", "sine440", "loud1k", "fullscale", "noise", "quiet", "chirp",

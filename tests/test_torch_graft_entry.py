@@ -31,6 +31,18 @@ from multilingual_kws_tpu_torch import graft_entry
 from multilingual_kws_tpu_torch.models.convert import flax_to_state_dict
 from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LINES = [
     r"dryrun_multichip\(2\): step ok, loss=\d+\.\d{4}, eval_correct=\d+",
     r"dryrun_multichip\(2\): resident fused step ok, loss=\d+\.\d{4}",

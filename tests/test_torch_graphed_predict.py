@@ -37,6 +37,17 @@ from test_torch_model import ATOL, _flax_variables, _inputs, _tiny_trunk
 from test_torch_realtime import THRESHOLD, models, stream_audio  # noqa: F401 (fixtures)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def flax_weights():
     fm = tiny_transfer_model(input_scale=1.0)

@@ -29,6 +29,18 @@ from multilingual_kws_tpu_torch.stream import engine, realtime
 from multilingual_kws_tpu_torch.train import checkpoints, evaluate, finetune, pretrain, steps
 from multilingual_kws_tpu_torch.utils.wav import write_wav
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "multilingual_kws_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "multilingual_kws_tpu")

@@ -15,6 +15,17 @@ import torch
 from multilingual_kws_tpu_torch.probes import fft_cost, rates, sass
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def inputs():
     return rates.probe_inputs("cpu", seed=1, rows=16)

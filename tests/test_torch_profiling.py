@@ -20,6 +20,17 @@ from multilingual_kws_tpu_torch.ops import _build
 from multilingual_kws_tpu_torch.utils import compilation_cache, profiling
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scripted(timer_cls, monkeypatch):
     clock = itertools.count(0.0, 0.125)
     monkeypatch.setattr(time, "perf_counter", lambda: next(clock))

@@ -4,9 +4,21 @@ so they agree exactly)."""
 
 import numpy as np
 import pytest
+import torch
 
 from multilingual_kws_tpu.data import splits as jax_splits
 from multilingual_kws_tpu_torch.data import splits
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _names(n=200, seed=0):

@@ -27,6 +27,18 @@ from multilingual_kws_tpu_torch.stream import detector as port_detector
 from multilingual_kws_tpu_torch.stream import engine as port_engine
 from multilingual_kws_tpu_torch.utils.wav import read_wav
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 THRESHOLDS = [0.3, 0.5, 0.7, 0.9]
 BATCH = 128  # several batches and a zero-padded tail on this stream
 

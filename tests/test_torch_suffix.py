@@ -30,6 +30,18 @@ from multilingual_kws_tpu_torch.ops import cuda_frontend
 from multilingual_kws_tpu_torch.ops.micro_exact import FrontendConfig
 from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs in parallel
+    workers that share the cores, and these small models' many small ops
+    then spend their time in thread barriers rather than arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F = 49
 SETTINGS = {"default": {}, "no_pcan": dict(enable_pcan=False), "no_log": dict(enable_log=False)}
 STRIDES = {"1": 1, "7": 7, "F": F}
