@@ -15,6 +15,13 @@ equivalent of the reference's batch_streaming_analysis.py): ``StreamFlags``,
   return tensors or numpy arrays).
 - Audio is processed in chunks of at most ``max_chunk_length_sec``; chunks
   overlap by one clip so no window is lost at a boundary.
+
+Under a profiler a call records its stages as spans
+(``utils/profiling.annotate``): the root ``engine.scan``, then
+``engine.read_wav``, ``engine.cast`` (the stream to int16),
+``engine.frontend`` and ``engine.predict`` a chunk (counts ``batches``,
+``windows``), ``engine.wait`` (the one pull), and ``engine.detect`` and
+``engine.score`` a set of flags.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..ops.micro_torch import MicroFrontendTorch, cached_stream_frontend
 from ..settings import SILENCE_LABEL, UNKNOWN_WORD_LABEL
 from ..train.checkpoints import load_transfer_model
 from ..train.graphs import eval_forward, serve
+from ..utils.profiling import annotate, spanned
 from ..utils.wav import read_wav
 from .detector import DetectorParams, detect_all_thresholds
 from .stats import StreamingAccuracyStats
@@ -91,7 +99,8 @@ def stream_feature_chunks(
     if audio_data_end <= 0:
         return
     num_windows = int(np.ceil(audio_data_end / stride_samples))
-    i16 = np.clip(np.trunc(audio * 32768.0), -32768, 32767).astype(np.int16)
+    with annotate("engine.cast"):
+        i16 = np.clip(np.trunc(audio * 32768.0), -32768, 32767).astype(np.int16)
 
     max_chunk_windows = max(1, int(flags.max_chunk_length_sec * sample_rate) // stride_samples)
     w = 0
@@ -99,7 +108,9 @@ def stream_feature_chunks(
         n_w = min(max_chunk_windows, num_windows - w)
         start = w * stride_samples
         end = start + (n_w - 1) * stride_samples + clip_samples
-        yield frontend.stream_features(i16[start:end], n_w)
+        with annotate("engine.frontend"):
+            features = frontend.stream_features(i16[start:end], n_w)
+        yield features
         w += n_w
 
 
@@ -146,6 +157,7 @@ def model_predict_fn(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.T
     return serve(model, eval_forward)
 
 
+@spanned("engine.scan")
 def calculate_streaming_accuracy(
     predict_fn: Callable,
     flag_list: Sequence[StreamFlags],
@@ -168,7 +180,8 @@ def calculate_streaming_accuracy(
         predict_fn = model_predict_fn(predict_fn)
     f0 = flag_list[0]
 
-    audio, sample_rate = read_wav(f0.wav)
+    with annotate("engine.read_wav"):
+        audio, sample_rate = read_wav(f0.wav)
     clip_samples = int(f0.clip_duration_ms * sample_rate / 1000)
     stride_samples = int(f0.clip_stride_ms * sample_rate / 1000)
     audio_data_end = audio.shape[0] - clip_samples
@@ -178,11 +191,15 @@ def calculate_streaming_accuracy(
     else:
         preds = []
         for windows in stream_feature_chunks(audio, sample_rate, f0, frontend, device):
-            preds.extend(_predict_batches(predict_fn, windows, batch_size))
+            with annotate("engine.predict") as span:
+                batches = _predict_batches(predict_fn, windows, batch_size)
+                span.count(batches=len(batches), windows=windows.shape[0])
+            preds.extend(batches)
         if preds:
             # one device -> host pull of all softmax rows (numpy rows join
             # as host tensors)
-            inferences = torch.cat([torch.as_tensor(p) for p in preds], dim=0).float().cpu().numpy()
+            with annotate("engine.wait"):
+                inferences = torch.cat([torch.as_tensor(p) for p in preds], dim=0).float().cpu().numpy()
         else:
             inferences = np.zeros((0, 3), np.float32)
 
@@ -201,20 +218,22 @@ def calculate_streaming_accuracy(
             minimum_count=flags.minimum_count,
             target_id=2,
         )
-        per_thresh = detect_all_thresholds(
-            inferences[:n], times_ms, flags.detection_thresholds, params,
-            target_name=flags.target_keyword,
-        )
+        with annotate("engine.detect"):
+            per_thresh = detect_all_thresholds(
+                inferences[:n], times_ms, flags.detection_thresholds, params,
+                target_name=flags.target_keyword,
+            )
         res_thresh = {}
-        for threshold in flags.detection_thresholds:
-            found, found_w_conf = per_thresh[float(threshold)]
-            stats = StreamingAccuracyStats(target_keyword=flags.target_keyword)
-            stats.read_ground_truth_file(flags.ground_truth)
-            stats.calculate_accuracy_stats(found, -1, flags.time_tolerance_ms)
-            if verbose:
-                print(f"results for {threshold:0.2f}")
-                stats.print_accuracy_stats()
-            res_thresh[threshold] = (found, found_w_conf)
+        with annotate("engine.score"):
+            for threshold in flags.detection_thresholds:
+                found, found_w_conf = per_thresh[float(threshold)]
+                stats = StreamingAccuracyStats(target_keyword=flags.target_keyword)
+                stats.read_ground_truth_file(flags.ground_truth)
+                stats.calculate_accuracy_stats(found, -1, flags.time_tolerance_ms)
+                if verbose:
+                    print(f"results for {threshold:0.2f}")
+                    stats.print_accuracy_stats()
+                res_thresh[threshold] = (found, found_w_conf)
         results.append((flags, res_thresh))
     return results, inferences
 

@@ -31,6 +31,14 @@ graph per shape after one eager call, as the JAX package jits its step);
 both pipelines take the same steps on the same batches. Each epoch's
 evaluation (``evaluate_dataset``) runs the eval featurization and
 ``evaluate`` as programs too.
+
+Under a profiler a call records its stages as spans
+(``utils/profiling.annotate``): the root ``finetune.call`` (counting
+``graphs_kept``, the CUDA graphs alive as it returns), ``finetune.start``
+(the model, the base weights, the dataset, the bank), and an epoch's
+``finetune.draws`` (the host draws and their upload), ``finetune.epoch``
+(the steps' launches; counts ``steps``), ``finetune.wait`` (the losses'
+pull) and ``finetune.evaluate`` (counts ``batches``).
 """
 
 from __future__ import annotations
@@ -49,7 +57,9 @@ from ..models.efficientnet import as_dtype
 from ..models.kws_model import KWSTransferModel, lecun_init_
 from ..ops.augment import SpecAugParams
 from ..settings import ModelSettings, standard_microspeech_model_settings
+from ..utils.profiling import annotate, spanned
 from . import checkpoints as ckpt
+from . import graphs
 from .graphs import eval_forward, serve
 from .metrics import CSVLogger
 from .steps import calibrate_batch_stats, make_finetune_epoch_scan, make_finetune_step
@@ -119,6 +129,7 @@ def _base_state_dict(base_params, base_batch_stats) -> Optional[Dict[str, torch.
     return {k: v for k, v in sd.items() if k.split(".")[0] in ("trunk", "embedding_head")}
 
 
+@spanned("finetune.call", lambda: {"graphs_kept": graphs.kept})
 def transfer_learn(
     target: str,
     train_files: Sequence[str],
@@ -162,57 +173,58 @@ def transfer_learn(
     192-d embedding and the transfer head stay float32: the JAX package's
     mixed-precision contract); None or "float32": float32. It builds the
     default model; a ``model`` given computes in its own dtype."""
-    trunk_dtype = as_dtype(compute_dtype)
-    dev = resolve_device(device)
-    model_settings = model_settings or standard_microspeech_model_settings(3)
-    if model is None:
-        meta = ckpt.load_metadata(base_model_path) if base_model_path is not None else {}
-        model = lecun_init_(KWSTransferModel(ckpt.sized_trunk(meta, trunk_dtype), num_categories=3), seed or 0)
-    model = model.to(dev).eval()
-    if base_params is None and base_model_path is not None:
-        base_params = ckpt.load_embedding_variables(base_model_path, dev)
-    base = _base_state_dict(base_params, base_batch_stats)
-    if base is not None:
-        with torch.no_grad():
-            own = model.state_dict()
-            for k, v in base.items():
-                own[k].copy_(torch.as_tensor(v))
+    with annotate("finetune.start"):
+        trunk_dtype = as_dtype(compute_dtype)
+        dev = resolve_device(device)
+        model_settings = model_settings or standard_microspeech_model_settings(3)
+        if model is None:
+            meta = ckpt.load_metadata(base_model_path) if base_model_path is not None else {}
+            model = lecun_init_(KWSTransferModel(ckpt.sized_trunk(meta, trunk_dtype), num_categories=3), seed or 0)
+        model = model.to(dev).eval()
+        if base_params is None and base_model_path is not None:
+            base_params = ckpt.load_embedding_variables(base_model_path, dev)
+        base = _base_state_dict(base_params, base_batch_stats)
+        if base is not None:
+            with torch.no_grad():
+                own = model.state_dict()
+                for k, v in base.items():
+                    own[k].copy_(torch.as_tensor(v))
 
-    dataset = AudioDataset(
-        model_settings=model_settings,
-        commands=[target],
-        background_data_dir=bg_datadir,
-        unknown_files=unknown_files,
-        unknown_percentage=unknown_percentage,
-        spec_aug_params=SpecAugParams(percentage=80),
-        seed=seed,
-        device=dev,
-    )
+        dataset = AudioDataset(
+            model_settings=model_settings,
+            commands=[target],
+            background_data_dir=bg_datadir,
+            unknown_files=unknown_files,
+            unknown_percentage=unknown_percentage,
+            spec_aug_params=SpecAugParams(percentage=80),
+            seed=seed,
+            device=dev,
+        )
 
-    if base_params is None:
-        # a fresh trunk: calibrate its BN statistics to the data, so that
-        # frozen-BN training sees normalized features (drop-connect draws
-        # from their own generator, as the JAX package's fixed dropout key)
-        t0 = time.time()
-        calib = [
-            specs
-            for specs, _ in dataset.train_batches(
-                train_files, batch_size=min(batch_size, 64), num_steps=2
-            )
-        ]
-        drop = torch.Generator(device=dev)
-        drop.manual_seed(0)
-        calibrate_batch_stats(model, calib, drop_generator=drop)
-        if verbose:
-            print(f"calibrated BN statistics on {len(calib)} batches ({time.time()-t0:.1f}s)", flush=True)
+        if base_params is None:
+            # a fresh trunk: calibrate its BN statistics to the data, so that
+            # frozen-BN training sees normalized features (drop-connect draws
+            # from their own generator, as the JAX package's fixed dropout key)
+            t0 = time.time()
+            calib = [
+                specs
+                for specs, _ in dataset.train_batches(
+                    train_files, batch_size=min(batch_size, 64), num_steps=2
+                )
+            ]
+            drop = torch.Generator(device=dev)
+            drop.manual_seed(0)
+            calibrate_batch_stats(model, calib, drop_generator=drop)
+            if verbose:
+                print(f"calibrated BN statistics on {len(calib)} batches ({time.time()-t0:.1f}s)", flush=True)
 
-    logger = CSVLogger(csvlog_dest) if csvlog_dest else None
+        logger = CSVLogger(csvlog_dest) if csvlog_dest else None
 
-    if resident is None:
-        uniq = set(train_files) | set(unknown_files)
-        cap = resident_max_bytes if resident_max_bytes is not None else AudioDataset.RESIDENT_MAX_BYTES
-        resident = len(uniq) * model_settings.desired_samples * 2 <= cap
-    bank = dataset.build_resident_bank(train_files) if resident else None
+        if resident is None:
+            uniq = set(train_files) | set(unknown_files)
+            cap = resident_max_bytes if resident_max_bytes is not None else AudioDataset.RESIDENT_MAX_BYTES
+            resident = len(uniq) * model_settings.desired_samples * 2 <= cap
+        bank = dataset.build_resident_bank(train_files) if resident else None
     # the reference's quirk: steps_per_epoch = batch_size * num_batches
     steps_per_epoch = batch_size * num_batches
 
@@ -228,19 +240,25 @@ def transfer_learn(
         for epoch in range(num_epochs):
             t0 = time.time()
             if resident:
-                # one upload of the epoch's bank indices
-                draws = list(dataset.host_train_indices(train_files, batch_size, steps_per_epoch, bank))
-                losses, accs = epoch_scan(*dataset._put_batch(tuple(np.stack(a) for a in zip(*draws))))
-            else:
-                metrics = [
-                    step(specs, labels)
-                    for specs, labels in dataset.train_batches(
-                        train_files, batch_size=batch_size, num_steps=steps_per_epoch, prefetch=2
-                    )
-                ]
-                losses = torch.stack([m["loss"] for m in metrics])
-                accs = torch.stack([m["accuracy"] for m in metrics])
-            losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
+                with annotate("finetune.draws"):
+                    # one upload of the epoch's bank indices
+                    draws = list(dataset.host_train_indices(train_files, batch_size, steps_per_epoch, bank))
+                    uploaded = dataset._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+            with annotate("finetune.epoch") as span:
+                if resident:
+                    losses, accs = epoch_scan(*uploaded)
+                else:
+                    metrics = [
+                        step(specs, labels)
+                        for specs, labels in dataset.train_batches(
+                            train_files, batch_size=batch_size, num_steps=steps_per_epoch, prefetch=2
+                        )
+                    ]
+                    losses = torch.stack([m["loss"] for m in metrics])
+                    accs = torch.stack([m["accuracy"] for m in metrics])
+                span.count(steps=steps_per_epoch)
+            with annotate("finetune.wait"):
+                losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
             val = evaluate_dataset(evaluate, dataset, val_files, batch_size)
             ep = {
                 "epoch": epoch,
@@ -297,16 +315,19 @@ def transfer_learn(
 def evaluate_dataset(evaluate_fn, dataset: AudioDataset, files, batch_size) -> Dict[str, float]:
     """Weighted-mean metrics over eval batches (``evaluate_fn`` from
     ``make_finetune_step``, a program; the JAX package's function also
-    takes its train state, which the port keeps in the model)."""
+    takes its train state, which the port keeps in the model). The span
+    ``finetune.evaluate``, counting ``batches``."""
     tot_n = 0
     tot_loss = 0.0
     tot_acc = 0.0
-    for specs, labels in dataset.eval_batches(files, batch_size=batch_size):
-        m = evaluate_fn(specs, labels)
-        n = labels.shape[0]
-        tot_n += n
-        tot_loss += float(m["loss"]) * n
-        tot_acc += float(m["accuracy"]) * n
+    with annotate("finetune.evaluate") as span:
+        for specs, labels in dataset.eval_batches(files, batch_size=batch_size):
+            m = evaluate_fn(specs, labels)
+            n = labels.shape[0]
+            tot_n += n
+            tot_loss += float(m["loss"]) * n
+            tot_acc += float(m["accuracy"]) * n
+            span.count(batches=1)
     if tot_n == 0:
         return {"loss": float("nan"), "accuracy": float("nan")}
     return {"loss": tot_loss / tot_n, "accuracy": tot_acc / tot_n}

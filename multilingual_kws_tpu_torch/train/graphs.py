@@ -30,6 +30,15 @@ one step as a CUDA graph and replays it, one host call a step.
   (``ops/_build.count``); each replay adds the captured launches to the
   wrappers' ``launches``.
 - There is no fallback: a capture or a replay that fails raises.
+- Two process-wide counters: ``captures``, every capture by an
+  ``EpochGraph`` or a ``ProgramGraphs``, and ``kept``, the graphs alive now
+  (one added a capture, one taken away when a graph is freed: a program's
+  eviction of a key, or its owner's end). Each capture is the span
+  ``graphs.capture``, each eager warm-up before one ``graphs.warmup``
+  (``utils/profiling.annotate``), and an epoch's replays ``graphs.wait``:
+  the host waits on the device there, since a replay blocks once CUDA's
+  launch queue is full (a pretraining step's graph holds some 3,800
+  kernels), so the device's idle there is the graph's own.
 
 The graph holds the addresses of what it reads and writes: the model's
 parameters and buffers, the optimizer's state, the resident and background
@@ -88,11 +97,30 @@ import torch
 
 from .. import exact_float32
 from ..ops import _build
+from ..utils.profiling import annotate
 
 # eager steps before the capture; one makes every lazy allocation and
 # one-off call of the step (Adam's state, the kernels' attributes, the
 # tables, NCCL's communicator), and each is a real step
 WARMUP_STEPS = 1
+
+# every capture in this process, and the graphs alive now
+captures = 0
+kept = 0
+
+
+def _track(graph) -> None:
+    """Count a new graph in ``captures`` and ``kept``; its finalizer takes
+    it out of ``kept`` when it is freed."""
+    global captures, kept
+    captures += 1
+    kept += 1
+    weakref.finalize(graph, _release)
+
+
+def _release() -> None:
+    global kept
+    kept -= 1
 
 
 def resolved_device(device) -> torch.device:
@@ -186,8 +214,9 @@ class EpochGraph:
             if done == steps:
                 return
             self._capture()
-        for _ in range(steps - done):
-            self.graph.replay()
+        with annotate("graphs.wait"):
+            for _ in range(steps - done):
+                self.graph.replay()
         self.replays += steps - done
         count_replays(self.per_replay, steps - done)
 
@@ -205,7 +234,7 @@ def on_side_stream(device: torch.device, run: Callable):
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
-    with torch.cuda.stream(side):
+    with annotate("graphs.warmup"), torch.cuda.stream(side):
         out = run()
     current.wait_stream(side)
     return out
@@ -217,16 +246,18 @@ def capture(run: Callable, device: torch.device, pool=None, generators: Sequence
     ``device``, in ``pool`` (a ``torch.cuda.graph_pool_handle()``; None: a
     pool of its own), with ``generators`` registered. A captured call does
     not run: the first replay runs it."""
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    before = {w: w.captured for w in _build.WRAPPERS}
-    t0 = time.perf_counter()
-    # thread_local: another thread's CUDA calls (NCCL's watchdog, a
-    # prefetch thread) do not invalidate the capture
-    with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        out = run()
-    torch.cuda.synchronize(device)
+    with annotate("graphs.capture"):
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        before = {w: w.captured for w in _build.WRAPPERS}
+        t0 = time.perf_counter()
+        # thread_local: another thread's CUDA calls (NCCL's watchdog, a
+        # prefetch thread) do not invalidate the capture
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            out = run()
+        torch.cuda.synchronize(device)
+    _track(graph)
     per_replay = {w: w.captured - n for w, n in before.items() if w.captured != n}
     return graph, out, per_replay, time.perf_counter() - t0
 

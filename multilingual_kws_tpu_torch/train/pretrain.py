@@ -35,6 +35,14 @@ and so is validation's scoring of each eval batch; on the card each is a
 CUDA graph per shape after one eager call (``train/graphs.ProgramGraphs``),
 as the JAX package jits them. BN calibration and checkpoints run eagerly
 between epochs. Every step and evaluation runs under ``exact_float32``.
+
+Under a profiler a call records its stages as spans
+(``utils/profiling.annotate``): the root ``pretrain.call`` (counting
+``graphs_kept``, the CUDA graphs alive as it returns), ``pretrain.start``
+(from the entry to the first epoch), and an epoch's ``pretrain.draws`` (the
+host draws and their upload), ``pretrain.epoch`` (the steps' launches;
+counts ``steps``), ``pretrain.wait`` (the losses' pull),
+``pretrain.calibrate`` and ``pretrain.validate``.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from ..models.kws_model import KWSEmbeddingModel, lecun_init_, make_embedding_mo
 from ..ops.augment import SpecAugParams
 from ..parallel import mesh
 from ..settings import ModelSettings, standard_microspeech_model_settings
+from ..utils.profiling import annotate, spanned
+from . import graphs
 from .checkpoints import BestValCheckpoint
 from .graphs import EpochGraph, ProgramGraphs, check_on_device, module_program
 from .metrics import CSVLogger, save_history
@@ -196,6 +206,7 @@ def _validate(model, dataset: AudioDataset, val_files, val_labels, batch_size: i
     return loss_sum, correct, len(val_files)
 
 
+@spanned("pretrain.call", lambda: {"graphs_kept": graphs.kept})
 def pretrain(
     train_files: Sequence[str],
     val_files: Sequence[str],
@@ -228,101 +239,109 @@ def pretrain(
     Returns (model, history, dataset): the model in eval mode, and per epoch
     "loss", "accuracy" (the train steps' means), "val_loss" and
     "val_accuracy"."""
-    group = mesh.default_group()
-    world = dist.get_world_size(group) if group is not None else 1
-    rank = dist.get_rank(group) if group is not None else 0
-    dev = resolve_device(config.device)
-    model_settings = model_settings or standard_microspeech_model_settings(config.num_labels)
+    with annotate("pretrain.start"):
+        group = mesh.default_group()
+        world = dist.get_world_size(group) if group is not None else 1
+        rank = dist.get_rank(group) if group is not None else 0
+        dev = resolve_device(config.device)
+        model_settings = model_settings or standard_microspeech_model_settings(config.num_labels)
 
-    dataset = AudioDataset(
-        model_settings=model_settings,
-        commands=list(commands),
-        background_data_dir=background_data_dir,
-        unknown_files=list(unknown_files),
-        silence_percentage=config.silence_percentage,
-        unknown_percentage=config.unknown_percentage,
-        spec_aug_params=SpecAugParams(percentage=80),
-        seed=config.shuffle_seed,
-        device=dev,
-        shard=(rank, world),
-    )
-    num_labels = len(dataset.commands)
-    if model is None:
-        model = lecun_init_(
-            make_embedding_model(num_labels, device="cpu", compute_dtype=config.compute_dtype), config.shuffle_seed
+        dataset = AudioDataset(
+            model_settings=model_settings,
+            commands=list(commands),
+            background_data_dir=background_data_dir,
+            unknown_files=list(unknown_files),
+            silence_percentage=config.silence_percentage,
+            unknown_percentage=config.unknown_percentage,
+            spec_aug_params=SpecAugParams(percentage=80),
+            seed=config.shuffle_seed,
+            device=dev,
+            shard=(rank, world),
         )
-    model = model.to(dev)
-    if resume_params is not None:
-        model.load_state_dict(resume_params, strict=True)
-
-    optimizer = flat_adam(model.parameters(), config.learning_rate)
-    step, _ = make_pretrain_step(model, optimizer, group)
-
-    train_labels = [label_from_parent_dir(f) for f in train_files]
-    val_labels = [label_from_parent_dir(f) for f in val_files]
-    writer = rank == 0
-    logger = CSVLogger(config.csvlog_dest) if config.csvlog_dest and writer else None
-    ckpt = BestValCheckpoint(config.checkpoint_dir) if config.checkpoint_dir and writer else None
-    meta = {"kind": "embedding", "width_coefficient": model.trunk.width_coefficient,
-            "depth_coefficient": model.trunk.depth_coefficient, **(checkpoint_meta or {})}
-    history: Dict[str, List[float]] = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
-
-    steps_per_epoch = config.steps_per_epoch or max(1, len(train_files) // config.batch_size)
-    use_resident = config.resident_data
-    if use_resident is None:
-        uniq = set(train_files) | set(unknown_files)
-        use_resident = len(uniq) * model_settings.desired_samples * 2 <= config.resident_max_bytes
-    bank = dataset.build_resident_bank(train_files) if use_resident else None
-    keep = dataset._keep(config.batch_size)
-
-    def resident_draws(num_steps):
-        """One upload of a pass's (steps, B) bank indices, labels and
-        silence flags."""
-        draws = list(dataset.host_train_indices(
-            train_files, config.batch_size, num_steps, bank, labels=train_labels, single_target=False
-        ))
-        return dataset._put_batch(tuple(np.stack(a) for a in zip(*draws)))
-
-    def epoch_batches(num_steps):
-        if not use_resident:
-            yield from dataset.train_batches(
-                train_files, batch_size=config.batch_size, num_steps=num_steps, labels=train_labels,
-                single_target=False, prefetch=config.prefetch,
+        num_labels = len(dataset.commands)
+        if model is None:
+            model = lecun_init_(
+                make_embedding_model(num_labels, device="cpu", compute_dtype=config.compute_dtype), config.shuffle_seed
             )
-            return
-        idx, lbl, sil = resident_draws(num_steps)
-        for i in range(num_steps):
-            yield dataset.resident_specs(bank["bank"], idx[i], sil[i]), lbl[i, keep]
+        model = model.to(dev)
+        if resume_params is not None:
+            model.load_state_dict(resume_params, strict=True)
 
-    drop = torch.Generator(device=dev)
-    drop.manual_seed(config.shuffle_seed + 1)
-    if use_resident:
-        # one device program an epoch, or a step (the JAX package's fused
-        # resident epoch and step)
-        build = build_fused_resident_epoch if config.scan_epoch else build_fused_resident_step
-        resident = build(model, optimizer, group, dataset, bank["bank"], drop, device=dev)
+        optimizer = flat_adam(model.parameters(), config.learning_rate)
+        step, _ = make_pretrain_step(model, optimizer, group)
+
+        train_labels = [label_from_parent_dir(f) for f in train_files]
+        val_labels = [label_from_parent_dir(f) for f in val_files]
+        writer = rank == 0
+        logger = CSVLogger(config.csvlog_dest) if config.csvlog_dest and writer else None
+        ckpt = BestValCheckpoint(config.checkpoint_dir) if config.checkpoint_dir and writer else None
+        meta = {"kind": "embedding", "width_coefficient": model.trunk.width_coefficient,
+                "depth_coefficient": model.trunk.depth_coefficient, **(checkpoint_meta or {})}
+        history: Dict[str, List[float]] = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
+
+        steps_per_epoch = config.steps_per_epoch or max(1, len(train_files) // config.batch_size)
+        use_resident = config.resident_data
+        if use_resident is None:
+            uniq = set(train_files) | set(unknown_files)
+            use_resident = len(uniq) * model_settings.desired_samples * 2 <= config.resident_max_bytes
+        bank = dataset.build_resident_bank(train_files) if use_resident else None
+        keep = dataset._keep(config.batch_size)
+
+        def resident_draws(num_steps):
+            """One upload of a pass's (steps, B) bank indices, labels and
+            silence flags."""
+            draws = list(dataset.host_train_indices(
+                train_files, config.batch_size, num_steps, bank, labels=train_labels, single_target=False
+            ))
+            return dataset._put_batch(tuple(np.stack(a) for a in zip(*draws)))
+
+        def epoch_batches(num_steps):
+            if not use_resident:
+                yield from dataset.train_batches(
+                    train_files, batch_size=config.batch_size, num_steps=num_steps, labels=train_labels,
+                    single_target=False, prefetch=config.prefetch,
+                )
+                return
+            idx, lbl, sil = resident_draws(num_steps)
+            for i in range(num_steps):
+                yield dataset.resident_specs(bank["bank"], idx[i], sil[i]), lbl[i, keep]
+
+        drop = torch.Generator(device=dev)
+        drop.manual_seed(config.shuffle_seed + 1)
+        if use_resident:
+            # one device program an epoch, or a step (the JAX package's fused
+            # resident epoch and step)
+            build = build_fused_resident_epoch if config.scan_epoch else build_fused_resident_step
+            resident = build(model, optimizer, group, dataset, bank["bank"], drop, device=dev)
     try:
         for epoch in range(config.num_epochs):
             t0 = time.time()
-            if use_resident and config.scan_epoch:
-                losses, accs = resident(*resident_draws(steps_per_epoch))
-            elif use_resident:
-                idx, lbl, sil = resident_draws(steps_per_epoch)
-                metrics = [resident(idx[i], lbl[i], sil[i]) for i in range(steps_per_epoch)]
-                losses, accs = (torch.stack(m) for m in zip(*metrics))
-            else:
-                metrics = [step(specs, labels, drop) for specs, labels in epoch_batches(steps_per_epoch)]
-                losses = torch.stack([m["loss"] for m in metrics])
-                accs = torch.stack([m["accuracy"] for m in metrics])
-            losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
+            if use_resident:
+                with annotate("pretrain.draws"):
+                    idx, lbl, sil = resident_draws(steps_per_epoch)
+            with annotate("pretrain.epoch") as span:
+                if use_resident and config.scan_epoch:
+                    losses, accs = resident(idx, lbl, sil)
+                elif use_resident:
+                    metrics = [resident(idx[i], lbl[i], sil[i]) for i in range(steps_per_epoch)]
+                    losses, accs = (torch.stack(m) for m in zip(*metrics))
+                else:
+                    metrics = [step(specs, labels, drop) for specs, labels in epoch_batches(steps_per_epoch)]
+                    losses = torch.stack([m["loss"] for m in metrics])
+                    accs = torch.stack([m["accuracy"] for m in metrics])
+                span.count(steps=steps_per_epoch)
+            with annotate("pretrain.wait"):
+                losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
 
             if config.bn_calibration_batches > 0:
-                calib = [specs for specs, _ in epoch_batches(config.bn_calibration_batches)]
-                fixed = torch.Generator(device=dev)
-                fixed.manual_seed(0)
-                calibrate_batch_stats(model, calib, drop_generator=fixed)
+                with annotate("pretrain.calibrate"):
+                    calib = [specs for specs, _ in epoch_batches(config.bn_calibration_batches)]
+                    fixed = torch.Generator(device=dev)
+                    fixed.manual_seed(0)
+                    calibrate_batch_stats(model, calib, drop_generator=fixed)
 
-            loss_sum, correct, tot = _validate(model, dataset, val_files, val_labels, config.batch_size, group)
+            with annotate("pretrain.validate"):
+                loss_sum, correct, tot = _validate(model, dataset, val_files, val_labels, config.batch_size, group)
             ep = {
                 "epoch": epoch,
                 "loss": float(np.mean(losses)),

@@ -425,7 +425,13 @@ def test_kmeans_fit_from_the_same_centers_matches_jax(monkeypatch):
     monkeypatch.setattr(jax.random, "randint", lambda *a, **kw: jnp.asarray(picks[0]))
     monkeypatch.setattr(jax.random, "choice", lambda key_i, n, p=None: chosen[
         jnp.argmax(jnp.all(scan_keys == key_i, axis=-1))])
-    fit = jax.jit(jax_df.kmeans_fit.__wrapped__, static_argnames=("n_clusters", "n_iters"))  # a trace of its own
+    def seeding(key, points, n_clusters, n_iters):
+        # a function of its own, so a trace of its own: JAX keeps the traces
+        # of one function for every jit of it, and a trace of kmeans_fit
+        # made earlier in this process would skip the patched draws
+        return jax_df.kmeans_fit.__wrapped__(key, points, n_clusters, n_iters=n_iters)
+
+    fit = jax.jit(seeding, static_argnames=("n_clusters", "n_iters"))
     np.testing.assert_array_equal(np.asarray(fit(key, jnp.asarray(pts), k, n_iters=0)), seeded.numpy())
     want = np.asarray(fit(key, jnp.asarray(pts), k, n_iters=50))
     np.testing.assert_allclose(got, want, atol=KMEANS_TOL, rtol=KMEANS_TOL)
