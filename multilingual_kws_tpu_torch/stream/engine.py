@@ -13,12 +13,17 @@ equivalent of the reference's batch_streaming_analysis.py): ``StreamFlags``,
   program: on a card one CUDA graph, replayed for every batch.
 - The softmax rows come to the host in one pull (a ``predict_fn`` may
   return tensors or numpy arrays).
+- A 16-bit wav goes from the file to the frontend's upload as its own int16
+  samples, read in one pass (``_read_stream``); other sample widths are
+  decoded to float and quantised as the reference does.
 - Audio is processed in chunks of at most ``max_chunk_length_sec``; chunks
   overlap by one clip so no window is lost at a boundary.
 
 Under a profiler a call records its stages as spans
 (``utils/profiling.annotate``): the root ``engine.scan``, then
-``engine.read_wav``, ``engine.cast`` (the stream to int16),
+``engine.read_wav`` (counts ``samples`` read and ``pcm16``: 1 when the
+stream went to the frontend as the file's int16 samples), ``engine.cast``
+(only where a float or non-int16 stream is quantised to int16),
 ``engine.frontend`` and ``engine.predict`` a chunk (counts ``batches``,
 ``windows``), ``engine.wait`` (the one pull), and ``engine.detect`` and
 ``engine.score`` a set of flags.
@@ -28,9 +33,10 @@ from __future__ import annotations
 
 import os
 import pickle
+import wave
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +84,43 @@ class StreamTarget:
     destination_result_inferences: Optional[str] = None
 
 
+def _read_stream(path) -> Tuple[np.ndarray, int]:
+    """(the wav's first channel, sample rate). 16-bit PCM comes back as the
+    file's own int16 samples, read in one pass into a writable array;
+    other sample widths as ``read_wav``'s float waveform, which
+    ``stream_feature_chunks`` quantises as the reference does."""
+    with open(path, "rb") as fh, wave.open(fh, "rb") as w:
+        sample_rate, nch, width = w.getframerate(), w.getnchannels(), w.getsampwidth()
+        if width == 2:
+            # wave.open stops at the data chunk's first byte
+            data = np.empty(w.getnframes() * nch, "<i2")
+            got = fh.readinto(memoryview(data).cast("B"))
+            data = data[: got // (2 * nch) * nch]
+    if width != 2:
+        return read_wav(path)
+    if nch > 1:
+        data = np.ascontiguousarray(data.reshape(-1, nch)[:, 0])
+    return data.astype(np.int16, copy=False), sample_rate
+
+
+def _stream_int16(audio: np.ndarray) -> np.ndarray:
+    """The stream as the frontend takes it, a writable contiguous int16
+    array: int16 audio as it is (copied only if read-only or strided);
+    floating audio in [-1, 1] quantised by the reference's clip of
+    trunc(x * 32768); other integer audio cast after a check that every
+    value lies in the int16 range (values are never wrapped)."""
+    if audio.dtype == np.int16:
+        return np.require(audio, requirements=("C", "W"))
+    with annotate("engine.cast"):
+        if np.issubdtype(audio.dtype, np.floating):
+            return np.clip(np.trunc(audio * 32768.0), -32768, 32767).astype(np.int16)
+        if not np.issubdtype(audio.dtype, np.integer):
+            raise TypeError(f"stream audio must be floating or integer, got {audio.dtype}")
+        if audio.size and (int(audio.min()) < -32768 or int(audio.max()) > 32767):
+            raise ValueError("stream audio values outside the int16 range")
+        return audio.astype(np.int16)
+
+
 def stream_feature_chunks(
     audio: np.ndarray,
     sample_rate: int,
@@ -85,13 +128,15 @@ def stream_feature_chunks(
     frontend: Optional[MicroFrontendTorch] = None,
     device="cuda",
 ):
-    """Long float waveform -> iterator of (n_w, 49, 40) float32 feature
-    windows on the device, chunked by max_chunk_length_sec.
+    """Long waveform -> iterator of (n_w, 49, 40) float32 feature windows on
+    the device, chunked by max_chunk_length_sec.
 
     The windows match the reference: range(0, len(audio) - clip_samples,
     stride_samples). The audio goes to the device once per chunk, as int16,
     into the frontend's ``stream_features`` program of the chunk's window
-    count."""
+    count. int16 audio (a 16-bit wav's samples) goes as it is; float audio
+    in [-1, 1] is quantised first, as the reference does; other integer
+    audio is cast after a range check (``_stream_int16``)."""
     frontend = frontend or cached_stream_frontend(int(sample_rate), str(resolve_device(device)))
     clip_samples = int(flags.clip_duration_ms * sample_rate / 1000)
     stride_samples = int(flags.clip_stride_ms * sample_rate / 1000)
@@ -99,8 +144,7 @@ def stream_feature_chunks(
     if audio_data_end <= 0:
         return
     num_windows = int(np.ceil(audio_data_end / stride_samples))
-    with annotate("engine.cast"):
-        i16 = np.clip(np.trunc(audio * 32768.0), -32768, 32767).astype(np.int16)
+    i16 = _stream_int16(audio)
 
     max_chunk_windows = max(1, int(flags.max_chunk_length_sec * sample_rate) // stride_samples)
     w = 0
@@ -180,8 +224,9 @@ def calculate_streaming_accuracy(
         predict_fn = model_predict_fn(predict_fn)
     f0 = flag_list[0]
 
-    with annotate("engine.read_wav"):
-        audio, sample_rate = read_wav(f0.wav)
+    with annotate("engine.read_wav") as span:
+        audio, sample_rate = _read_stream(f0.wav)
+        span.count(samples=audio.shape[0], pcm16=audio.dtype == np.int16)
     clip_samples = int(f0.clip_duration_ms * sample_rate / 1000)
     stride_samples = int(f0.clip_stride_ms * sample_rate / 1000)
     audio_data_end = audio.shape[0] - clip_samples

@@ -7,6 +7,8 @@ the reference's synthetic-stream validation recipe (SURVEY.md section 4).
 
 from __future__ import annotations
 
+import struct
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +16,33 @@ import numpy as np
 from multilingual_kws_tpu.utils.wav import write_wav
 
 SR = 16000
+
+
+def pcm_wav(path, samples: np.ndarray, form: str, rate: int = SR) -> None:
+    """int16 ``samples`` written as a wav of ``form``: "pcm16-mono",
+    "pcm16-stereo" (a second channel that differs), "pcm16-list-chunk" (a
+    LIST chunk between fmt and data), "pcm8" (unsigned, the top 8 bits) or
+    "pcm32" (the samples in the top 16 bits, seeded noise in the low 16)."""
+    s = samples.astype(np.int32)
+    width, frames = 2, samples[:, None]
+    if form == "pcm16-stereo":
+        frames = np.stack([samples, samples[::-1] // 2], axis=1)
+    elif form == "pcm8":
+        width, frames = 1, ((s + 32768) >> 8).astype(np.uint8)[:, None]
+    elif form == "pcm32":
+        low = np.random.default_rng(len(s)).integers(0, 1 << 16, len(s))
+        width, frames = 4, ((s << 16) | low).astype("<i4")[:, None]
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(frames.shape[1])
+        w.setsampwidth(width)
+        w.setframerate(rate)
+        w.writeframes(frames.astype(frames.dtype.newbyteorder("<")).tobytes())
+    if form == "pcm16-list-chunk":
+        raw = Path(path).read_bytes()
+        at = raw.index(b"data")
+        chunk = b"LIST" + struct.pack("<I", 10) + b"INFOabcdef"
+        raw = raw[:4] + struct.pack("<I", len(raw) - 8 + len(chunk)) + raw[8:at] + chunk + raw[at:]
+        Path(path).write_bytes(raw)
 
 
 # Each synthetic "keyword" is a sequence of tone segments (fake phonemes).

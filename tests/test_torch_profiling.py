@@ -13,6 +13,9 @@ Spans: without a profiler ``annotate`` records nothing and never enters
 profiler's clock, and each entry point (the engine's scan, the fine-tune,
 pretraining) records its stages in order under one call. ``graphs.kept``
 counts the graphs alive (a stub graph here: the CPU has no CUDA graph).
+The engine's ``engine.read_wav`` counts the samples read and whether they
+went to the frontend as the file's int16 (``pcm16``); ``engine.cast``
+appears only where a stream is quantised.
 """
 
 import gc
@@ -24,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import make_corpus
+from helpers import make_corpus, pcm_wav
 from multilingual_kws_tpu.utils import profiling as jax_profiling
 from multilingual_kws_tpu_torch.models.efficientnet import BlockArgs, EfficientNet
 from multilingual_kws_tpu_torch.models.kws_model import KWSEmbeddingModel, KWSTransferModel, lecun_init_
@@ -275,8 +278,8 @@ def _pretrain(corpus, tmp_path):
 
 
 ENTRY_SPANS = {
-    "scan": (_scan, ["engine.scan", "engine.read_wav", "engine.cast", "engine.frontend", "engine.predict",
-                     "engine.wait", "engine.detect", "engine.score"]),
+    "scan": (_scan, ["engine.scan", "engine.read_wav", "engine.frontend", "engine.predict", "engine.wait",
+                     "engine.detect", "engine.score"]),
     "finetune": (_finetune, ["finetune.call", "finetune.start"]
                  + ["finetune.draws", "finetune.epoch", "finetune.wait", "finetune.evaluate"] * 2),
     "pretrain": (_pretrain, ["pretrain.call", "pretrain.start", "pretrain.draws", "pretrain.epoch", "pretrain.wait",
@@ -300,8 +303,34 @@ def test_each_entry_point_records_its_stages_under_one_call(entry, corpus, tmp_p
     counts = {s.name: s.counts for s in spans}
     if entry == "scan":
         assert counts["engine.predict"] == {"windows": 100, "batches": 4}
+        assert counts["engine.read_wav"] == {"samples": 3 * 16000, "pcm16": 1}
     elif entry == "finetune":
         assert root.counts == {"graphs_kept": graphs.kept} and counts["finetune.epoch"] == {"steps": 4}
         assert counts["finetune.evaluate"] == {"batches": 1}
     else:
         assert root.counts == {"graphs_kept": graphs.kept} and counts["pretrain.epoch"] == {"steps": 2}
+
+
+@pytest.mark.parametrize("stream", ["pcm16 wav", "pcm8 wav", "float chunks"])
+def test_the_engine_counts_how_it_took_in_the_stream(stream, tmp_path):
+    """A 16-bit wav goes to the frontend as its own samples (``pcm16`` 1, no
+    ``engine.cast``); an 8-bit wav, and float audio handed to the chunks, are
+    quantised under ``engine.cast``."""
+    rng = np.random.default_rng(5)
+    samples = (3000 * rng.standard_normal(3 * 16000)).astype(np.int16)
+    wav = tmp_path / "stream.wav"
+    pcm_wav(wav, samples, "pcm8" if stream == "pcm8 wav" else "pcm16-mono")
+    (tmp_path / "labels.txt").write_text("alpha, 1000\n")
+    flags = engine.StreamFlags(wav=str(wav), ground_truth=str(tmp_path / "labels.txt"), target_keyword="alpha",
+                               detection_thresholds=[0.5])
+    model = lecun_init_(KWSTransferModel(_tiny_trunk(), 3), 0).eval()
+    profiling.clear()
+    with _profiled():
+        if stream == "float chunks":
+            list(engine.stream_feature_chunks(samples / 32768.0, 16000, flags, device="cpu"))
+        else:
+            engine.calculate_streaming_accuracy(model, [flags], batch_size=32, verbose=False, device="cpu")
+    spans = {s.name: s for s in profiling.recorded()}
+    assert ("engine.cast" in spans) == (stream != "pcm16 wav")
+    if stream != "float chunks":
+        assert spans["engine.read_wav"].counts == {"samples": 3 * 16000, "pcm16": int(stream == "pcm16 wav")}

@@ -6,7 +6,15 @@ frontend is exact), so the softmax rows differ only by float32 sum order
 inside the model: held to atol 1e-5. The detections (keyword and time) of
 both engines must be equal, and at least one threshold must detect
 something.
+
+The port reads a 16-bit stream as its int16 samples and hands them to the
+frontend as they are; the JAX engine reads float32 and quantises back. On
+every sample width and channel count both engines' rows and detections
+are ``==`` under a model that is a fixed function of the features, and the
+array that reaches the port's frontend is ``==`` the float round trip.
 """
+
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import keyword_clip, tiny_transfer_model
+from helpers import keyword_clip, pcm_wav, tiny_transfer_model
 from multilingual_kws_tpu.stream import detector as jax_detector
 from multilingual_kws_tpu.stream import engine as jax_engine
 from multilingual_kws_tpu.tools.stream_synth import synthesize_stream, write_stream
@@ -25,7 +33,7 @@ from multilingual_kws_tpu_torch.ops.micro_exact import FrontendConfig
 from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
 from multilingual_kws_tpu_torch.stream import detector as port_detector
 from multilingual_kws_tpu_torch.stream import engine as port_engine
-from multilingual_kws_tpu_torch.utils.wav import read_wav
+from multilingual_kws_tpu_torch.utils.wav import read_wav, read_wav_int16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -200,3 +208,106 @@ def test_predict_batches_fixed_shape():
     out = torch.cat(port_engine._predict_batches(predict, w, 2))
     assert seen == [(2, 49, 40, 1)] * 3
     assert torch.equal(out[:, 0], w[:, 0, 0])
+
+
+_PROJECTION = np.random.default_rng(11).standard_normal((49 * 40, 3)) / 200.0
+
+
+def _feature_rows(specs):
+    """Softmax rows that are a fixed function of each window's features
+    alone, in float64 then rounded to float32, for JAX arrays and tensors
+    alike: equal features give equal rows in either engine. The target's
+    logit is raised so the detector has work on the test stream."""
+    x = np.asarray(specs, dtype=np.float64).reshape(len(specs), -1)
+    z = x @ _PROJECTION + np.array([0.0, 0.0, 4.5])
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def _round_trip(path) -> np.ndarray:
+    """The stream as the engine quantised it before it read int16: the float
+    waveform, then the reference's clip of trunc(x * 32768)."""
+    audio, _ = read_wav(path)
+    return np.clip(np.trunc(audio * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def _recording_frontend(monkeypatch, sample_rate=16000):
+    """A CPU frontend whose ``stream_features`` keeps each array it gets."""
+    fe = MicroFrontendTorch(FrontendConfig(sample_rate=sample_rate), device="cpu")
+    seen, original = [], fe.stream_features
+
+    def recording(audio, num_windows):
+        seen.append(audio)
+        return original(audio, num_windows)
+
+    monkeypatch.setattr(fe, "stream_features", recording)
+    return fe, seen
+
+
+@pytest.mark.parametrize("form", ["pcm16-mono", "pcm16-stereo", "pcm16-list-chunk", "pcm8", "pcm32"])
+def test_engine_reads_every_wav_as_the_float_round_trip_did(form, stream, tmp_path, monkeypatch):
+    wav, labels = str(tmp_path / f"{form}.wav"), stream[1]
+    pcm_wav(wav, read_wav_int16(stream[0])[0], form)
+    fe, seen = _recording_frontend(monkeypatch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = port_engine.calculate_streaming_accuracy(
+            _feature_rows, [_flags(port_engine, wav, labels)], frontend=fe, batch_size=BATCH, verbose=False,
+            device="cpu",
+        )
+    want = jax_engine.calculate_streaming_accuracy(
+        _feature_rows, [_flags(jax_engine, wav, labels)], batch_size=BATCH, verbose=False
+    )
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[0][0][1] == want[0][0][1]
+    assert any(got[0][0][1][th][0] for th in THRESHOLDS), "no threshold detected anything"
+    (audio,) = seen
+    assert audio.dtype == np.int16 and audio.flags.writeable and audio.flags.c_contiguous
+    np.testing.assert_array_equal(audio, _round_trip(wav)[: audio.shape[0]])
+
+
+@pytest.fixture(scope="module")
+def short_stream(stream):
+    """Three seconds of the stream as int16 and its float features, in two
+    chunks of one second (100 windows)."""
+    samples = read_wav_int16(stream[0])[0][: 3 * 16000].copy()
+    flags = _flags(port_engine, *stream, max_chunk_length_sec=1)
+    fe = MicroFrontendTorch(FrontendConfig(sample_rate=16000), device="cpu")
+    want = port_engine.featurize_stream(samples.astype(np.float32) / 32768.0, 16000, flags, fe)
+    assert want.shape == (100, 49, 40)
+    return samples, flags, want
+
+
+@pytest.mark.parametrize("kind", ["int16", "int16-read-only", "int16-strided", "int32", "float32"])
+def test_stream_feature_chunks_take_int16_as_it_is(kind, short_stream, monkeypatch):
+    """int16 audio reaches the frontend as it is (a read-only or strided
+    array as a writable contiguous copy), other integer audio cast, float
+    audio quantised: the same features, no warning."""
+    samples, flags, want = short_stream
+    audio = {
+        "int16": samples.copy(),
+        "int16-read-only": np.frombuffer(samples.tobytes(), np.int16),
+        "int16-strided": np.repeat(samples, 2)[::2],
+        "int32": samples.astype(np.int32),
+        "float32": samples.astype(np.float32) / 32768.0,
+    }[kind]
+    fe, seen = _recording_frontend(monkeypatch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = np.concatenate([c.numpy() for c in port_engine.stream_feature_chunks(audio, 16000, flags, fe)])
+    np.testing.assert_array_equal(got, want)
+    assert len(seen) == 2
+    for a in seen:
+        assert a.dtype == np.int16 and a.flags.writeable and a.flags.c_contiguous
+    if kind == "int16":
+        assert all(np.shares_memory(a, audio) for a in seen)
+
+
+@pytest.mark.parametrize("audio, error", [
+    (np.full(32000, 40000, np.int32), ValueError),
+    (np.zeros(32000, bool), TypeError),
+])
+def test_stream_feature_chunks_refuse_what_int16_cannot_hold(audio, error, short_stream):
+    fe = MicroFrontendTorch(FrontendConfig(sample_rate=16000), device="cpu")
+    with pytest.raises(error):
+        next(port_engine.stream_feature_chunks(audio, 16000, short_stream[1], fe))
