@@ -11,6 +11,13 @@ there); the device applies the whole train transform to the batch:
 
 Label order is the reference's: [_silence_, _unknown_, word1, ...].
 
+A data set made with ``waveform=True`` (for a trunk that takes waveforms,
+``models/wav2vec2.py``) runs the same augment kernel on the same draws,
+then hands the int16 result on as normalized float32 waveforms
+(``normalized_waveform``: / 32768, then zero mean and unit variance a
+clip), with no frontend and no SpecAugment, whose masks are then not drawn;
+its eval batches are the normalized clips.
+
 Host draws are the JAX package's, line for line (``_host_train_draw``, one
 numpy ``default_rng(seed)``), so one seed gives the same clip indices,
 labels and silence flags in both packages. The device draws (augmentation,
@@ -84,6 +91,14 @@ def _shared_frontend(config: FrontendConfig, device: str) -> MicroFrontendTorch:
     return MicroFrontendTorch(config, device=device)
 
 
+def _augment_int16(aug_params: AugmentParams, gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep):
+    """The augmentation's draws for all B rows from ``gen``, then
+    ``augment_quantize`` on the kept rows: (kept, samples) int16."""
+    draws = draw_augment_params(gen, rows.shape[0], fg_bank.shape[1], bg_sizes, aug_params)
+    draws = AugmentDraws(*(d[keep] for d in draws))
+    return augment_quantize(fg_bank, rows[keep], is_silence[keep], bg_data, draws)
+
+
 def augment_featurize(
     frontend, aug_params: AugmentParams, gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep=slice(None)
 ):
@@ -96,12 +111,27 @@ def augment_featurize(
     (data parallelism): the draws are made for all B rows, and the kernels
     run on the kept rows only (``rows`` outside ``keep`` are not read)."""
     b = rows.shape[0]
-    draws = draw_augment_params(gen, b, fg_bank.shape[1], bg_sizes, aug_params)
-    draws = AugmentDraws(*(d[keep] for d in draws))
-    quant = augment_quantize(fg_bank, rows[keep], is_silence[keep], bg_data, draws)
+    quant = _augment_int16(aug_params, gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep)
     specs = frontend.features_from_int16(quant)
     masks = draw_spec_masks(gen, b, specs.shape[1], specs.shape[2], aug_params.spec_aug)
     return apply_spec_masks(specs, SpecMaskDraws(*(m[keep] for m in masks)))[..., None]
+
+
+def normalized_waveform(wav_int16: torch.Tensor) -> torch.Tensor:
+    """(B, samples) int16 -> float32 / 32768, each clip then (x - mean) /
+    sqrt(var + 1e-7) with the biased variance: ``Wav2Vec2FeatureExtractor``'s
+    ``do_normalize``."""
+    x = wav_int16.to(torch.float32) * (1.0 / 32768.0)
+    var, mean = torch.var_mean(x, dim=-1, correction=0, keepdim=True)
+    return (x - mean) / torch.sqrt(var + 1e-7)
+
+
+def augment_waveform(aug_params: AugmentParams, gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep=slice(None)):
+    """The train-batch device transform of a waveform trunk: the draws and
+    ``augment_quantize`` of ``augment_featurize``, then
+    ``normalized_waveform``: (kept rows, samples) float32. No frontend, no
+    SpecAugment draws."""
+    return normalized_waveform(_augment_int16(aug_params, gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep))
 
 
 def load_background_bank(background_dir) -> Tuple[np.ndarray, np.ndarray]:
@@ -126,7 +156,8 @@ class AudioDataset:
     ``device`` is where batches are augmented and featurized (``"cuda"`` by
     default: it raises without a card unless given ``"cpu"``). ``shard`` =
     (rank, world size): the training batches hold that rank's rows of each
-    global batch (module docstring); eval batches are whole."""
+    global batch (module docstring); eval batches are whole. ``waveform``:
+    batches are normalized waveforms, not features (module docstring)."""
 
     # default device-memory budget for transfer_learn's automatic choice of
     # the resident pipeline (the JAX package's value)
@@ -148,9 +179,11 @@ class AudioDataset:
         frontend: Optional[MicroFrontendTorch] = None,
         device="cuda",
         shard: Tuple[int, int] = (0, 1),
+        waveform: bool = False,
     ):
         self.device = resolve_device(device)
         self.shard = shard
+        self.waveform = waveform
         self.model_settings = model_settings
         self.unknown_files = list(unknown_files)
         self.unknown_percentage = unknown_percentage
@@ -201,10 +234,15 @@ class AudioDataset:
     # -- device functions -----------------------------------------------------
 
     def _train_device(self, fg_bank, rows, is_silence, keep=slice(None)):
-        return augment_featurize(
-            self.frontend, self.aug_params, self.gen, fg_bank, rows, is_silence,
-            self.bg_data, self.bg_sizes, keep,
-        )
+        return self._transform(fg_bank, rows, is_silence, self.bg_data, self.bg_sizes, keep)
+
+    def _transform(self, fg_bank, rows, is_silence, bg_data, bg_sizes, keep):
+        """The train transform: features (``augment_featurize``) or
+        normalized waveforms (``augment_waveform``)."""
+        if self.waveform:
+            return augment_waveform(self.aug_params, self.gen, fg_bank, rows, is_silence, bg_data, bg_sizes, keep)
+        return augment_featurize(self.frontend, self.aug_params, self.gen, fg_bank, rows, is_silence,
+                                 bg_data, bg_sizes, keep)
 
     def _train_upload(self, wav, is_silence):
         """The streaming pipeline's transform: this process's int16 clips of
@@ -220,9 +258,7 @@ class AudioDataset:
     def _train_resident(self, fg_bank, rows, is_silence, bg_data, bg_sizes):
         """The resident pipeline's transform: the global batch's (B,) rows
         of the int16 bank and silence flags -> this process's specs."""
-        keep = self._keep(is_silence.shape[0])
-        return augment_featurize(self.frontend, self.aug_params, self.gen, fg_bank, rows, is_silence,
-                                 bg_data, bg_sizes, keep)
+        return self._transform(fg_bank, rows, is_silence, bg_data, bg_sizes, self._keep(is_silence.shape[0]))
 
     def resident_specs(self, fg_bank, rows, is_silence):
         """This process's specs of a global batch's (B,) bank rows and
@@ -235,6 +271,8 @@ class AudioDataset:
         return local_rows(batch_size, self.shard)
 
     def _eval_device(self, wav_int16):
+        if self.waveform:
+            return normalized_waveform(wav_int16)
         return self.frontend.features_from_int16(wav_int16)[..., None]
 
     def _put_batch(self, batch):

@@ -232,7 +232,12 @@ class MBConvBlock(nn.Module):
 class EfficientNet(nn.Module):
     """EfficientNet trunk (no pooling/top). Input NHWC (B, H, W, 1) float32;
     returns the NCHW feature map of the ``top`` layer in ``compute_dtype``
-    (an attribute, "float32" or "bfloat16")."""
+    (an attribute, "float32" or "bfloat16"). It takes features, not
+    waveforms (``takes_waveform``); the embedding head pools its map over
+    H and W (``pool_dims``)."""
+
+    takes_waveform = False
+    pool_dims = (-2, -1)
 
     def __init__(
         self,

@@ -2,11 +2,16 @@
 
 Counterpart of ``multilingual_kws_tpu/models/kws_model.py``:
 
-- ``KWSEmbeddingModel``: EfficientNetB0 trunk (49x40x1 input) ->
-  GlobalAveragePooling -> Dense 1024 relu -> Dense 1024 relu -> Dense 192
-  selu (the embedding, reference layer "dense_2") -> Dense num_labels logits;
-- ``KWSTransferModel``: the same trunk and embedding head -> Dense 18 tanh
-  -> Dense 3 softmax.
+- ``KWSEmbeddingModel``: a trunk -> global average pooling -> Dense 1024
+  relu -> Dense 1024 relu -> Dense 192 selu (the embedding, reference layer
+  "dense_2") -> Dense num_labels logits. The trunk is EfficientNetB0
+  (``models/efficientnet.py``: (B, 49, 40, 1) features in, an NCHW map out,
+  pooled over H and W) or the XLS-R 300M wav2vec 2.0 trunk
+  (``models/wav2vec2.py``: (B, samples) normalized 16 kHz waveforms in,
+  (B, frames, 1024) out, pooled over the frames). Each trunk declares what
+  it takes (``takes_waveform``) and its pooled axes (``pool_dims``);
+- ``KWSTransferModel``: the EfficientNetB0 trunk and embedding head ->
+  Dense 18 tanh -> Dense 3 softmax.
 
 Module names follow the Flax ones, so a Flax parameter path maps onto a
 ``state_dict`` key by replacing "/" with "." (``models/convert.py``), and a
@@ -25,12 +30,15 @@ float32.
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
 from .efficientnet import EfficientNet
+from .wav2vec2 import Wav2Vec2Trunk
 
 EMBEDDING_DIM = 192
 
@@ -42,16 +50,19 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 class EmbeddingHead(nn.Module):
     """GAP -> 1024 relu -> 1024 relu -> 192 selu (the embedding, float32);
-    the three dense layers compute in the feature map's dtype."""
+    the three dense layers compute in the feature map's dtype. The mean is
+    over ``pool_dims``: H and W of an NCHW map, or the frames of a (B, T, C)
+    sequence."""
 
-    def __init__(self, in_features: int):
+    def __init__(self, in_features: int, pool_dims=(-2, -1)):
         super().__init__()
+        self.pool_dims = tuple(pool_dims)
         self.dense_0 = nn.Linear(in_features, 1024)
         self.dense_1 = nn.Linear(1024, 1024)
         self.dense_2 = nn.Linear(1024, EMBEDDING_DIM)
 
     def forward(self, feature_map):
-        x = feature_map.mean(dim=(-2, -1))  # GlobalAveragePooling2D (NCHW)
+        x = feature_map.mean(dim=self.pool_dims)  # GlobalAveragePooling
         x = F.relu(_dense(self.dense_0, x))
         x = F.relu(_dense(self.dense_1, x))
         return F.selu(_dense(self.dense_2, x).float())
@@ -70,16 +81,21 @@ class TransferHead(nn.Module):
 
 
 class KWSEmbeddingModel(nn.Module):
-    """Trunk + embedding head + classifier logits (the pretraining model)."""
+    """Trunk + embedding head + classifier logits (the pretraining model).
 
-    def __init__(self, num_labels: int, trunk: EfficientNet):
+    ``trunk``: an ``EfficientNet``, which takes (B, 49, 40, 1) features, or
+    a ``Wav2Vec2Trunk``, which takes (B, samples) normalized waveforms
+    (``trunk.takes_waveform``); the head pools over ``trunk.pool_dims``."""
+
+    def __init__(self, num_labels: int, trunk: Union[EfficientNet, Wav2Vec2Trunk]):
         super().__init__()
         self.trunk = trunk
-        self.embedding_head = EmbeddingHead(trunk.out_channels)
+        self.embedding_head = EmbeddingHead(trunk.out_channels, trunk.pool_dims)
         self.classifier = nn.Linear(EMBEDDING_DIM, num_labels)
 
     def embed(self, x, drop_generator=None):
-        """(B, 49, 40, 1) -> the 192-d embedding."""
+        """The trunk's input ((B, 49, 40, 1) features, or (B, samples)
+        waveforms) -> the 192-d embedding."""
         return self.embedding_head(self.trunk(x, drop_generator))
 
     def forward(self, x, return_embedding: bool = False, drop_generator=None):
@@ -113,13 +129,20 @@ def make_transfer_model(num_categories: int = 3, device="cuda", **trunk_kw) -> K
     return KWSTransferModel(EfficientNet(**trunk_kw), num_categories).to(dev).eval()
 
 
-def make_embedding_model(num_labels: int, device="cuda", **trunk_kw) -> KWSEmbeddingModel:
-    """Full-width EfficientNetB0 embedding model (``num_labels`` logits) on
-    ``device``, in eval mode, with PyTorch's default initialization
+def make_embedding_model(num_labels: int, device="cuda", trunk: Optional[nn.Module] = None,
+                         **trunk_kw) -> KWSEmbeddingModel:
+    """An embedding model (``num_labels`` logits) on ``device``, in eval
+    mode. Without ``trunk``: the full-width EfficientNetB0, which takes
+    (B, 49, 40, 1) features, with PyTorch's default initialization
     (pretraining starts from ``lecun_init_``, Flax's); ``trunk_kw`` go to
-    the trunk, as for ``make_transfer_model``."""
+    it, as for ``make_transfer_model``. ``trunk``: a built trunk, such as
+    ``models.wav2vec2.Wav2Vec2Trunk()`` (XLS-R 300M, which takes (B,
+    samples) normalized 16 kHz waveforms; ``wav2vec2_init_`` draws
+    ``transformers``' initialization); ``trunk_kw`` must then be empty."""
     dev = resolve_device(device)
-    return KWSEmbeddingModel(num_labels, EfficientNet(**trunk_kw)).to(dev).eval()
+    if trunk is not None and trunk_kw:
+        raise ValueError(f"a built trunk takes no trunk arguments: {sorted(trunk_kw)}")
+    return KWSEmbeddingModel(num_labels, trunk if trunk is not None else EfficientNet(**trunk_kw)).to(dev).eval()
 
 
 def transfer_params_from_embedding(embedding_state, transfer_state):

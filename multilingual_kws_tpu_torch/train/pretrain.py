@@ -22,6 +22,13 @@ A step on W ranks is thus the step of one process on the global batch
 (``tests/test_torch_parallel.py``). Without a group, or with one rank, it is
 a plain single-device loop.
 
+The model's trunk chooses the data path: a trunk that takes waveforms
+(``trunk.takes_waveform``, the wav2vec 2.0 trunk of ``models/wav2vec2.py``)
+gets a data set of normalized waveforms (``AudioDataset(waveform=True)``:
+the augment kernel, no frontend, no SpecAugment) for its steps and its
+validation; a model without BN layers skips BN calibration, so nothing is
+drawn for it.
+
 Small training sets stay on the device (``AudioDataset.build_resident_bank``,
 chosen automatically below ``resident_max_bytes``): each epoch uploads its
 bank indices once, and each step gathers, augments and featurizes on the
@@ -47,6 +54,7 @@ counts ``steps``), ``pretrain.wait`` (the losses' pull),
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence
@@ -54,6 +62,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from .. import exact_float32, resolve_device
 from ..data.dataset import AudioDataset
@@ -230,11 +239,14 @@ def pretrain(
     model: an embedding model to train in place; by default a full-width
     EfficientNetB0 with ``len(commands)`` + silence / unknown labels,
     ``config.compute_dtype`` and Flax's default initialization from
-    ``config.shuffle_seed``. resume_params: a port ``state_dict`` of an
-    embedding checkpoint (parameters and BN statistics) to start from; the
-    optimizer starts fresh, as in the JAX package. checkpoint_meta: extra
-    checkpoint metadata (the trunk's coefficients and ``kind: embedding``
-    are always written).
+    ``config.shuffle_seed``. A model whose trunk takes waveforms (XLS-R
+    300M: ``make_embedding_model(n, trunk=Wav2Vec2Trunk())``) trains on
+    normalized waveforms (module docstring). resume_params: a port
+    ``state_dict`` of an embedding checkpoint (parameters and BN
+    statistics) to start from; the optimizer starts fresh, as in the JAX
+    package. checkpoint_meta: extra
+    checkpoint metadata (the trunk's coefficients, or a wav2vec 2.0
+    trunk's widths, and ``kind: embedding`` are always written).
 
     Returns (model, history, dataset): the model in eval mode, and per epoch
     "loss", "accuracy" (the train steps' means), "val_loss" and
@@ -245,6 +257,7 @@ def pretrain(
         rank = dist.get_rank(group) if group is not None else 0
         dev = resolve_device(config.device)
         model_settings = model_settings or standard_microspeech_model_settings(config.num_labels)
+        waveform = model is not None and model.trunk.takes_waveform
 
         dataset = AudioDataset(
             model_settings=model_settings,
@@ -257,6 +270,7 @@ def pretrain(
             seed=config.shuffle_seed,
             device=dev,
             shard=(rank, world),
+            waveform=waveform,
         )
         num_labels = len(dataset.commands)
         if model is None:
@@ -275,8 +289,12 @@ def pretrain(
         writer = rank == 0
         logger = CSVLogger(config.csvlog_dest) if config.csvlog_dest and writer else None
         ckpt = BestValCheckpoint(config.checkpoint_dir) if config.checkpoint_dir and writer else None
-        meta = {"kind": "embedding", "width_coefficient": model.trunk.width_coefficient,
-                "depth_coefficient": model.trunk.depth_coefficient, **(checkpoint_meta or {})}
+        if waveform:
+            trunk_meta = {"trunk": "wav2vec2", "wav2vec2": dataclasses.asdict(model.trunk.config)}
+        else:
+            trunk_meta = {"width_coefficient": model.trunk.width_coefficient,
+                          "depth_coefficient": model.trunk.depth_coefficient}
+        meta = {"kind": "embedding", **trunk_meta, **(checkpoint_meta or {})}
         history: Dict[str, List[float]] = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
 
         steps_per_epoch = config.steps_per_epoch or max(1, len(train_files) // config.batch_size)
@@ -306,6 +324,7 @@ def pretrain(
             for i in range(num_steps):
                 yield dataset.resident_specs(bank["bank"], idx[i], sil[i]), lbl[i, keep]
 
+        calibrate = config.bn_calibration_batches > 0 and any(isinstance(m, nn.BatchNorm2d) for m in model.modules())
         drop = torch.Generator(device=dev)
         drop.manual_seed(config.shuffle_seed + 1)
         if use_resident:
@@ -333,7 +352,7 @@ def pretrain(
             with annotate("pretrain.wait"):
                 losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
 
-            if config.bn_calibration_batches > 0:
+            if calibrate:
                 with annotate("pretrain.calibrate"):
                     calib = [specs for specs, _ in epoch_batches(config.bn_calibration_batches)]
                     fixed = torch.Generator(device=dev)
