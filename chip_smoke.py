@@ -19,7 +19,8 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
   (c) drives the main path: ``calculate_streaming_accuracy`` over a
       synthesized 10-minute 16 kHz stream with the full-width EfficientNetB0
       transfer model (seeded random weights, eval mode, batch 2048), counts
-      each kernel's launches in the first run, times five runs (median and
+      each kernel's launches in the first run (the inference epilogue's: 49
+      a predict batch), times five runs (median and
       best), and checks the softmax rows
       (shape, finite, normalized; a prefix of windows against the CPU path;
       detections found). The target logit's bias is raised first, so that
@@ -247,7 +248,18 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       sides), the ``featurize_files`` wall, fast ``features`` at O_CLIPS
       clips, one resident batch; pool sizes printed, each graphed path's
       launches into the kernels line (``phase_o_launches``).
-      Last, one JSON line ``{"kernels": [...]}`` lists all nine kernels
+  (p) (run right after d) the B0 trunk's inference epilogue
+      (``ops/cuda_epilogue.bn_act``) at the scan's batch of 8192 windows of
+      phase c's stream: the kernel against its module-path twin at all 49
+      BatchNorm sites (float32 within EPILOGUE_F32_RTOL of each site's
+      largest value; bfloat16: ==), the softmax against
+      the module path (within EPILOGUE_SOFTMAX_GAP, phase c's card-vs-CPU
+      tolerance), one traced eager forward and one traced replay of the
+      predict program with no cuDNN BatchNorm or layout-transpose kernel, 49
+      launches a forward and 49 captured, the replay == the eager call; the
+      kernel's device time over the 49 sites beside its bytes bound. Phase
+      c's timed scan launches it 49 times a predict batch.
+      Last, one JSON line ``{"kernels": [...]}`` lists all ten kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
 
@@ -1843,18 +1855,22 @@ def bf16_op_rounding(torch, model, x):
     """Each Conv and BatchNorm of ``model`` at bf16 on ``x``: its error
     against float32 arithmetic on the same bf16 operands, over the error of
     rounding that float32 result to bf16 once (Flax computes BN in float32
-    and rounds once; a convolution accumulates in float32). Returns the
-    largest such ratio by kind: 1 up to the float32 sums' order, more where
-    an op rounds inside its arithmetic."""
+    and rounds once; a convolution accumulates in float32). A BatchNorm
+    that applies the swish or the residual add after it is called again
+    without them (on the path it took), so that its own rounding is
+    measured. Returns the largest such ratio by kind: 1 up to the float32
+    sums' order, more where an op rounds inside its arithmetic."""
     from multilingual_kws_tpu_torch.models.efficientnet import BatchNorm, Conv
 
     model.trunk.compute_dtype = torch.bfloat16
     worst, busy = {"Conv": 0.0, "BatchNorm": 0.0}, []
 
-    def hook(mod, inputs, out):
+    def hook(mod, inputs, kwargs, out):
         if busy:
             return
         busy.append(mod)
+        if isinstance(mod, BatchNorm):
+            out = mod(inputs[0], fused=kwargs.get("fused", False))
         params = {n: p.data for n, p in mod.named_parameters()}
         if isinstance(mod, Conv):  # the bf16 operands, in float32
             for n, p in mod.named_parameters():
@@ -1867,7 +1883,8 @@ def bf16_op_rounding(torch, model, x):
         kind = type(mod).__name__
         worst[kind] = max(worst[kind], float((out.float() - ref).abs().mean() / once))
 
-    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (Conv, BatchNorm))]
+    hooks = [m.register_forward_hook(hook, with_kwargs=True) for m in model.modules()
+             if isinstance(m, (Conv, BatchNorm))]
     try:
         with torch.no_grad():
             model(x)
@@ -3472,7 +3489,8 @@ def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
         check(not diff and hg == he and torch.equal(gg, ge),
               f"phase n: pretrain(resident_data=False): graphed != eager: {diff}, {hg} {he}")
         n_val = -(-len(val) // PT_BATCH)
-        check(launches["pretrain_stream"] == {"augment_quantize": N_STEPS + 1, "clip_features": N_STEPS + 1 + n_val},
+        check(launches["pretrain_stream"] == {"augment_quantize": N_STEPS + 1, "clip_features": N_STEPS + 1 + n_val,
+                                              "bn_act": B0_SITES * n_val},
               f"phase n: pretrain(resident_data=False) launched {launches['pretrain_stream']}")
         lines.append(f"pretrain(resident_data=False), 1 epoch of {N_STEPS} steps, 1 calibration batch, {len(val)} "
                      f"validation clips: graphed == eager (history {hg}, model, the dataset's generator)")
@@ -3948,7 +3966,8 @@ def frontend_program_phase(torch, ft_model, wave, ft_corpus, pt_corpus):
     diff = tensor_diffs(torch, sg, se)
     check(not diff and hg == he and torch.equal(gg, ge), f"phase o: pretrain's calibration graphed != eager: {diff}")
     n_val = -(-len(pt_corpus["val"]) // PT_BATCH)
-    check(launches["pretrain calibration"] == {"augment_quantize": N_STEPS + 2, "clip_features": N_STEPS + 2 + n_val},
+    check(launches["pretrain calibration"] == {"augment_quantize": N_STEPS + 2, "clip_features": N_STEPS + 2 + n_val,
+                                               "bn_act": B0_SITES * n_val},
           f"phase o: pretrain launched {launches['pretrain calibration']}")
     lines.append(f"pretrain(resident_data=True), 1 epoch of {N_STEPS} steps and BN calibration on 2 resident-program "
                  f"batches: the model (BN statistics included), history and generator == the eager twin's")
@@ -4046,6 +4065,146 @@ def frontend_program_phase(torch, ft_model, wave, ft_corpus, pt_corpus):
     return launches
 
 
+# kernels the B0 trunk's inference forward must not launch: cuDNN's
+# BatchNorm inference and the layout transposes around its float32 NCHW
+# convolutions (the epilogue kernel and the row products replace them)
+MODULE_PATH_KERNELS = ("bn_fw_inf", "nchwToNhwc", "nhwcToNchw")
+EPILOGUE_BATCH = 8192  # the scan cell's batch
+B0_SITES = 49  # the full-width B0's BatchNorm sites: bn_act launches an inference forward
+# float32 sites: |kernel - twin| <= this x the site's largest |twin|, about 8
+# float32 ulps: the kernel rounds s, t and one FMA; cuDNN's BatchNorm rounds its
+# own formula once a step (measured: 2.35e-7)
+EPILOGUE_F32_RTOL = 1e-6
+# bfloat16 sites: == the twin. The kernel computes the BatchNorm by the
+# formula of PyTorch's channels_last kernel, which the module path runs on
+# the card in bfloat16, and rounds where the module path rounds
+# the softmax against the module path: the card-vs-CPU softmax tolerance of
+# phase c (the row products and cuDNN sum in other orders)
+EPILOGUE_SOFTMAX_GAP = 1e-4
+MODULE_PATH_CHUNK = 1024  # windows a module-path forward (autograd keeps each chunk's activations)
+
+
+def module_path_forward(torch, model, x):
+    """The model's softmax on x through the B0 trunk's module path (cuDNN's
+    convolutions and BatchNorm, F.silu and the add as separate ops), the
+    path a forward took before the inference epilogue. The trunk's public
+    rule chooses it: an input that requires grad, under ``enable_grad``,
+    makes autograd record. Float32 computes in float32, as in
+    ``eval_forward``; in chunks of MODULE_PATH_CHUNK windows."""
+    from multilingual_kws_tpu_torch import exact_float32
+
+    outs = []
+    with torch.enable_grad(), exact_float32():
+        for i in range(0, x.shape[0], MODULE_PATH_CHUNK):
+            part = x[i:i + MODULE_PATH_CHUNK].clone().requires_grad_()
+            check(not model.trunk.inference_path(part), "an input that requires grad took the inference path")
+            outs.append(model(part).detach())
+    return torch.cat(outs)
+
+
+def epilogue_sites(torch, model, x, timed: bool = False):
+    """The model's inference forward on x (``graphs.eval_forward``) with each
+    BatchNorm's output held against its module-path twin on the same input,
+    on the card (``cuda_epilogue.bn_act_plain``: cuDNN's BatchNorm, F.silu,
+    the add). Returns (a row per site: name, shape, largest |kernel - twin|,
+    largest |twin|, values that differ of all, bytes read and written, with
+    ``timed`` the twin's ms by CUDA events; the forward's output)."""
+    from multilingual_kws_tpu_torch.models.efficientnet import BatchNorm
+    from multilingual_kws_tpu_torch.ops import cuda_epilogue
+    from multilingual_kws_tpu_torch.train.graphs import eval_forward
+
+    rows = []
+
+    def site(name):
+        def hook(bn, args, kwargs, out):
+            check(kwargs.get("fused", False), f"{name}: the inference forward took the module path")
+            twin_args = (args[0], bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+                         kwargs.get("act", False), kwargs.get("residual"))
+            twin = cuda_epilogue.bn_act_plain(*twin_args)
+            d = (out.float() - twin.float()).abs()
+            rows.append({
+                "site": name, "shape": tuple(out.shape), "max_err": float(d.max()),
+                "max_abs": float(twin.float().abs().max()), "differ": int((d > 0).sum()),
+                "values": out.numel(),
+                "bytes": out.numel() * out.element_size() * (2 if twin_args[-1] is None else 3),
+                "twin_ms": cuda_ms(torch, lambda: cuda_epilogue.bn_act_plain(*twin_args), 3) if timed else None,
+            })
+        return hook
+
+    handles = [m.register_forward_hook(site(n), with_kwargs=True)
+               for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    try:
+        out = eval_forward(model, x)
+    finally:
+        for h in handles:
+            h.remove()
+    return rows, out
+
+
+def kernel_names(events):
+    return {e["name"] for e in events if e["cat"] == "kernel"}
+
+
+def epilogue_phase(torch, model, windows, scan_launches: int):
+    """Phase p: the B0 trunk's inference epilogue (``ops/cuda_epilogue.bn_act``)
+    at the scan's batch of 8192 windows: the kernel against its twin at all
+    49 sites (EPILOGUE_F32_RTOL; bfloat16: ==), the model's
+    softmax against the module path, one traced forward and one traced
+    replay of the predict program with no MODULE_PATH_KERNELS and 49
+    launches (captured 49 times), the replay == the eager call; the
+    kernel's device time over the 49 sites beside its bytes bound and the
+    twin's time. The kernels line gives ``scan_launches``, the launches of
+    phase c's timed scan."""
+    from multilingual_kws_tpu_torch.ops import cuda_epilogue
+    from multilingual_kws_tpu_torch.train import graphs
+
+    x = windows[:EPILOGUE_BATCH, ..., None].contiguous()
+    rows, probs = epilogue_sites(torch, model, x, timed=True)
+    check(len(rows) == B0_SITES, f"{len(rows)} BatchNorm sites in the inference forward, expected {B0_SITES}")
+    worst = max(rows, key=lambda r: r["max_err"] / max(r["max_abs"], 1e-30))
+    rtol = worst["max_err"] / max(worst["max_abs"], 1e-30)
+    check(rtol <= EPILOGUE_F32_RTOL, f"bn_act vs twin at {worst['site']}: {worst['max_err']} of {worst['max_abs']}")
+    rows16, _ = epilogue_sites(torch, bf16_copy(torch, model), x)
+    differ16 = {r["site"]: r["differ"] for r in rows16 if r["differ"]}
+    check(len(rows16) == B0_SITES and not differ16, f"bfloat16 bn_act != twin, values by site: {differ16}")
+    ref = module_path_forward(torch, model, x)
+    gap = float((probs - ref).abs().max())
+    check(gap <= EPILOGUE_SOFTMAX_GAP, f"softmax of the inference epilogue vs the module path: {gap}")
+    before = cuda_epilogue.bn_act.launches
+    eager = graphs.eval_forward(model, x)
+    launches = cuda_epilogue.bn_act.launches - before
+    events, _ = device_trace(torch, lambda: graphs.eval_forward(model, x), expect=("bn_act_kernel", B0_SITES))
+    bad = sorted(n for n in kernel_names(events) if any(k in n for k in MODULE_PATH_KERNELS))
+    check(not bad and launches == B0_SITES, f"eager forward: {launches} epilogue launches; module-path kernels {bad}")
+    k_ms = sum(e["dur"] for e in events if e["cat"] == "kernel" and "bn_act_kernel" in e["name"]) / 1e3
+    fwd_ms = sum(e["dur"] for e in events if e["cat"] == "kernel") / 1e3
+    predict = graphs.serve(model, graphs.eval_forward)
+    captured = cuda_epilogue.bn_act.captured
+    for _ in range(2):  # an eager call, then the capture
+        predict(x)
+    captured = cuda_epilogue.bn_act.captured - captured
+    replay = predict(x)
+    check(captured == B0_SITES and torch.equal(replay, eager), f"predict program: {captured} captured launches, "
+          f"replay vs eager {float((replay - eager).abs().max())}")
+    events, _ = device_trace(torch, lambda: predict(x), expect=("bn_act_kernel", B0_SITES))
+    bad = sorted(n for n in kernel_names(events) if any(k in n for k in MODULE_PATH_KERNELS))
+    check(not bad, f"predict replay launches module-path kernels {bad}")
+    twin_ms = sum(r["twin_ms"] for r in rows)
+    b_ms = sum(r["bytes"] for r in rows) / PEAK_BYTES_PER_S * 1e3
+    print(f"phase p: bn_act at {len(rows)} sites, batch {EPILOGUE_BATCH}: float32 worst |kernel - twin| "
+          f"{worst['max_err']:.3g} of {worst['max_abs']:.3g} at {worst['site']}; bfloat16 == twin at every site "
+          f"({sum(r['values'] for r in rows16)} values); softmax vs the module path {gap:.3g}; eager forward {fwd_ms:.3f} device "
+          f"ms, of which bn_act {k_ms:.3f} ms (bytes bound {b_ms:.3f} ms, {100 * b_ms / k_ms:.1f} %; twin "
+          f"{twin_ms:.3f} ms); 49 launches a forward, 49 captured, replay == eager, no {MODULE_PATH_KERNELS} "
+          f"kernel; {scan_launches} launches in phase c's timed scan")
+    return [{
+        "name": "bn_act", "route": "cuda", "source": f"{PKG}/csrc/epilogue.cu",
+        "replaces": "no Pallas kernel: cuDNN BatchNorm inference, F.silu, the residual add",
+        "launches": scan_launches, "max_abs_err": worst["max_err"], "ms": k_ms, "plain_ms": twin_ms,
+        "bound_ms": b_ms, "bound_by": "bytes", "library_ms": twin_ms,
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -4060,7 +4219,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from multilingual_kws_tpu_torch.models.kws_model import make_transfer_model, seeded_init_
-    from multilingual_kws_tpu_torch.ops import _build, cuda_fft, cuda_frontend
+    from multilingual_kws_tpu_torch.ops import _build, cuda_epilogue, cuda_fft, cuda_frontend
     from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
     from multilingual_kws_tpu_torch.probes import sass
     from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
@@ -4160,6 +4319,7 @@ def main() -> int:
 
         cuda_fft.stream_prefix.launches = 0
         cuda_frontend.stream_suffix.launches = 0
+        cuda_epilogue.bn_act.launches = 0
         t1 = time.perf_counter()
         results, inferences = calculate_streaming_accuracy(
             model, [flags], batch_size=BATCH, verbose=False
@@ -4169,6 +4329,7 @@ def main() -> int:
         launches = {
             "stream_prefix": cuda_fft.stream_prefix.launches,
             "stream_suffix": cuda_frontend.stream_suffix.launches,
+            "bn_act": cuda_epilogue.bn_act.launches,
         }
         # four more timed runs: the host's share of the wall varies by run
         for _ in range(4):
@@ -4182,6 +4343,10 @@ def main() -> int:
     check(np.abs(inferences.sum(1) - 1).max() < 1e-4, "softmax rows do not sum to 1")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
+    # the scan's predict program replays the epilogue's 49 launches a batch
+    n_batches = -(-n_w // BATCH)
+    check(launches["bn_act"] == B0_SITES * n_batches,
+          f"bn_act launched {launches['bn_act']} times on the scan, expected {B0_SITES} x {n_batches} batches")
     # reference on a small input: the first windows through the CPU path
     feats_cpu = MicroFrontendTorch(device="cpu").stream_features(i16[: SR + 255 * 320], 256)
     check(torch.equal(feats_gpu.cpu(), feats_cpu), "stream features differ from the CPU path")
@@ -4294,6 +4459,8 @@ def main() -> int:
         print(f"phase d: SASS census of stream_suffix's loop at {cpt} channels a thread (exact frontend, "
               f"float features): {json.dumps(loop)}")
     del cpu_model, batch, base, audio
+    # (p) the B0 trunk's inference epilogue at the scan's batch
+    kernels += epilogue_phase(torch, model, fe.stream_features(torch.from_numpy(i16).to(dev), n_w), launches["bn_act"])
 
     # (e) the fine-tune slice, and (f)'s batch eval and training batches on
     # its fine-tuned model and corpus

@@ -13,7 +13,19 @@ tensor (``models/convert.py``). Keras-compat details kept from there:
   Normalization).
 
 The public boundary is NHWC ``(B, H, W, 1)`` like the JAX package; inside,
-tensors are NCHW.
+tensors are indexed (N, C, H, W) and the activations are stored
+channels_last: the input's NHWC strides, permuted, are channels_last's, and
+every convolution keeps its input's layout.
+
+The inference path (``EfficientNet.inference_path``: eval mode, the input
+on the card, autograd recording nothing in the trunk) runs each
+convolution's BatchNorm, the swish after it and the residual add as one
+pass of the epilogue kernel (``ops/cuda_epilogue.bn_act``) through the
+``BatchNorm`` modules, so their forward hooks still fire, and in float32
+each dense convolution as a matrix product over the channels_last rows
+(``rows_conv``), so no layout transpose runs. Every other call (train
+mode, a trainable trunk parameter, CPU tensors) runs the module path:
+cuDNN's convolutions, BatchNorm, ``F.silu`` and the add as separate ops.
 
 In ``train()`` mode BatchNorm normalizes with the batch's statistics and
 updates its running statistics as Flax's ``nn.BatchNorm`` does
@@ -51,6 +63,7 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cuda_epilogue
 from ..parallel import mesh
 
 
@@ -119,15 +132,24 @@ class BatchNorm(nn.BatchNorm2d):
     running statistics 0.01 of the way to them (Flax updates ``var`` with the
     biased variance; ``nn.BatchNorm2d`` would take the unbiased one).
     ``num_batches_tracked`` is kept but not counted. In eval mode it is
-    ``F.batch_norm`` on the running statistics."""
+    ``F.batch_norm`` on the running statistics.
+
+    ``act`` applies swish to the result and ``residual`` is added after it.
+    ``fused`` (the trunk's inference path, eval mode only) computes all of
+    it in one pass of the epilogue kernel (``ops/cuda_epilogue.bn_act``),
+    from the running statistics at the call; otherwise the three are
+    separate ops."""
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__(channels, eps=eps, momentum=0.01)
 
-    def forward(self, x):
+    def forward(self, x, act: bool = False, residual=None, fused: bool = False):
+        if fused:
+            return cuda_epilogue.bn_act(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                        self.eps, act, residual)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps)
+            return cuda_epilogue.bn_act_plain(x, self.running_mean, self.running_var, self.weight,
+                                              self.bias, self.eps, act, residual)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as Flax
         moments = torch.cat([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
         world = mesh.world_size()
@@ -141,12 +163,36 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.copy_((1.0 - m) * self.running_var + m * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        y = y.to(x.dtype)
+        if act:
+            y = F.silu(y)
+        return y if residual is None else y + residual
+
+
+def rows_conv(x: torch.Tensor, weight: torch.Tensor, bias, stride) -> torch.Tensor:
+    """A dense (groups 1), unpadded convolution of channels_last ``x`` as
+    one matrix product over its (N*H*W, C) rows; the result is
+    channels_last. A 1x1 convolution multiplies the rows as they lie in
+    memory; a larger kernel (the stem's 3x3 on one channel at stride 2,
+    padded before by ``correct_pad``) multiplies its patches, gathered into
+    rows by one copy. cuDNN runs these shapes in float32 with kernels for
+    NCHW, which on channels_last data transpose the input and the output;
+    ``F.unfold`` would launch one kernel a sample."""
+    o, c, kh, kw = weight.shape
+    patches = x.unfold(2, kh, stride[0]).unfold(3, kw, stride[1])  # (N, C, oh, ow, kh, kw), a view
+    n, _, oh, ow = patches.shape[:4]
+    rows = patches.permute(0, 2, 3, 1, 4, 5).reshape(n * oh * ow, c * kh * kw)
+    y = F.linear(rows, weight.reshape(o, c * kh * kw), bias)
+    return y.view(n, oh, ow, o).permute(0, 3, 1, 2)
 
 
 class Conv(nn.Conv2d):
     """Conv2d with Flax padding: SAME at stride 1 (odd kernels), Keras
-    correct_pad then VALID at stride 2; it computes in its input's dtype."""
+    correct_pad then VALID at stride 2; it computes in its input's dtype.
+    ``fused`` (the trunk's inference path) runs a dense, unpadded float32
+    convolution (the 1x1s and the stem) as a matrix product over the
+    channels_last rows (``rows_conv``); bfloat16 keeps cuDNN's, which round once after a float32 sum (cuBLAS
+    may reduce a bfloat16 product's partial sums in bfloat16)."""
 
     def __init__(self, cin, cout, kernel, strides=1, groups=1, bias=False):
         super().__init__(
@@ -154,10 +200,12 @@ class Conv(nn.Conv2d):
             padding=kernel // 2 if strides == 1 else 0,
         )
 
-    def forward(self, x):
+    def forward(self, x, fused: bool = False):
         if self.stride[0] == 2:
             x = F.pad(x, correct_pad(x.shape[-2:], self.kernel_size[0]))
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if fused and self.groups == 1 and not any(self.padding) and x.dtype == torch.float32:
+            return rows_conv(x, self.weight.to(x.dtype), bias, self.stride)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
@@ -168,9 +216,8 @@ class ConvBnAct(nn.Module):
         self.bn = BatchNorm(cout)
         self.use_act = use_act
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
-        return F.silu(x) if self.use_act else x
+    def forward(self, x, fused: bool = False):
+        return self.bn(self.conv(x, fused), act=self.use_act, fused=fused)
 
 
 def drop_connect(x, rate: float, generator) -> torch.Tensor:
@@ -212,26 +259,32 @@ class MBConvBlock(nn.Module):
         self.project_conv = Conv(expanded, filters_out, 1)
         self.project_bn = BatchNorm(filters_out)
 
-    def forward(self, x, drop_generator=None):
+    def forward(self, x, drop_generator=None, fused: bool = False):
         inputs = x
         if self.args.expand_ratio != 1:
-            x = F.silu(self.expand_bn(self.expand_conv(x)))
-        x = F.silu(self.dw_bn(self.dw_conv(x)))
+            x = self.expand_bn(self.expand_conv(x, fused), act=True, fused=fused)
+        x = self.dw_bn(self.dw_conv(x), act=True, fused=fused)
         if self.has_se:
             se = x.mean(dim=(-2, -1), keepdim=True)
-            se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se))))
+            se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se, fused)), fused))
             x = x * se
-        x = self.project_bn(self.project_conv(x))
+        x = self.project_conv(x, fused)
         if not self.residual:
-            return x
+            return self.project_bn(x, fused=fused)
         if self.training and self.drop_rate > 0:
-            x = drop_connect(x, self.drop_rate, drop_generator)
-        return x + inputs
+            return drop_connect(self.project_bn(x), self.drop_rate, drop_generator) + inputs
+        return self.project_bn(x, residual=inputs, fused=fused)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """The inference path's device test (the CPU tests substitute it)."""
+    return x.is_cuda
 
 
 class EfficientNet(nn.Module):
     """EfficientNet trunk (no pooling/top). Input NHWC (B, H, W, 1) float32;
-    returns the NCHW feature map of the ``top`` layer in ``compute_dtype``
+    returns the (N, C, H, W) feature map of the ``top`` layer (stored
+    channels_last) in ``compute_dtype``
     (an attribute, "float32" or "bfloat16"). It takes features, not
     waveforms (``takes_waveform``); the embedding head pools its map over
     H and W (``pool_dims``)."""
@@ -275,13 +328,22 @@ class EfficientNet(nn.Module):
         self.out_channels = round_filters(1280, width_coefficient)
         self.top = ConvBnAct(cin, self.out_channels, 1)
 
+    def inference_path(self, x: torch.Tensor) -> bool:
+        """Whether a forward on ``x`` takes the fused epilogue: eval mode,
+        ``x`` on the card, and autograd recording nothing in the trunk
+        (grad mode off, or neither ``x`` nor any trunk parameter requires
+        grad)."""
+        records = torch.is_grad_enabled() and any(t.requires_grad for t in (x, *self.parameters()))
+        return not self.training and _on_card(x) and not records
+
     def forward(self, x, drop_generator=None):
+        fused = self.inference_path(x)
         x = (x * self.input_scale + self.input_bias).to(self.compute_dtype)
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = self.stem(x)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> (N, C, H, W), channels_last strides
+        x = self.stem(x, fused)
         for name in self.block_names:
-            x = getattr(self, name)(x, drop_generator)
-        return self.top(x)
+            x = getattr(self, name)(x, drop_generator, fused)
+        return self.top(x, fused)
 
 
 def EfficientNetB0(**kw) -> EfficientNet:

@@ -71,6 +71,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "kws_augment_quantize": [P, I, I, L, P, P, P, P, I, L, P, P, P, P, F, P, P],
         "kws_error_string": [I],
     },
+    "epilogue": {
+        # x, residual (or null), mean, var, weight, bias, eps, rows, channels,
+        # dtype (0 float32, 1 bfloat16), act, out, stream
+        "kws_bn_act": [P, P, P, P, P, P, F, L, I, I, I, P, P],
+        "kws_error_string": [I],
+    },
 }
 
 # every kernel wrapper, each with two counters: ``launches``, the launches
