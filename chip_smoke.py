@@ -184,10 +184,10 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       augment_quantize against its plain version; then the headline at full
       width and batch 2048, float32 and bf16, chained L_TARGET_S a dtype),
       its JSON line printed on a line of its own, B1-B4 launched on its
-      path; ``bench.measure_pretrain_step`` at batch 512 (graphed epochs of
-      L_PT_STEPS steps) and the graphed epoch == the eager steps on its first
-      two steps; ``graft_entry.entry()`` on the card against the CPU (logits
-      within L_MODEL_TOL); ``graft_entry.dryrun_multichip(1,
+      path; the pretraining step at batch 512 on fixed feature windows as
+      an epoch graph (``train/graphs.EpochGraph``) == the eager steps on
+      its first two steps; ``graft_entry.entry()`` on the card against the
+      CPU (logits within L_MODEL_TOL); ``graft_entry.dryrun_multichip(1,
       full_size=True)`` over NCCL (its four lines); and
       ``examples/tutorial.run_tutorial`` at full width. Each path's launches
       by kernel go into the kernels line (``phase_l_launches``).
@@ -222,7 +222,6 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       B1 launched once a step. One profiled pair of graphed streaming steps
       shows both kernels launched by cudaGraphLaunch. Then graphed against
       eager in turns (N_TURNS each): the step at batch 64 (f32, bf16),
-      ``bench.stream_rate`` at batch 512 synchronous and with prefetch 2,
       one validation pass, ``cluster_and_sort``; captures and pool sizes
       printed, each graphed path's launches into the kernels line
       (``phase_n_launches``).
@@ -2967,8 +2966,7 @@ def dscnn_phase(torch, fe, corpus, wave, labels, work: Path, smi: str):
 
 
 L_TARGET_S = 0.5  # phase l: the headline's chained timing, each dtype (the bench's default is 2 s)
-L_PT_BATCH = 512  # phase l: the bench's pretraining step
-L_PT_STEPS = 16  # phase l: steps an epoch of it (the bench's default is 96)
+L_PT_BATCH = 512  # phase l: the pretraining step held graphed == eager
 L_MODEL_TOL = 1e-5  # entry() card against CPU: tests/test_torch_model.py's rtol and atol on logits
 
 
@@ -2993,6 +2991,8 @@ def bench_phase(torch, work: Path):
 
     from multilingual_kws_tpu_torch import bench, graft_entry
     from multilingual_kws_tpu_torch.examples import tutorial
+    from multilingual_kws_tpu_torch.train.graphs import EpochGraph
+    from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
 
     t_phase = time.perf_counter()
     launches = {}
@@ -3013,23 +3013,36 @@ def bench_phase(torch, work: Path):
     need = ("clip_features", "stream_prefix", "stream_suffix", "augment_quantize")
     check(all(launches["bench"].get(k, 0) > 0 for k in need), f"bench launches {launches['bench']}: not all of {need}")
 
-    # 2. the pretraining step at batch 512 on fixed feature windows, as a
-    # graphed epoch, float32 and bf16; then graphed == eager on an epoch's
-    # first two steps (the eager warm-up step and the first replay), under
-    # deterministic cuDNN, from one init
-    t0 = time.perf_counter()
-    step, launches["pretrain_step"] = phase_launches(torch, lambda: bench.measure_pretrain_step(
-        batch=L_PT_BATCH, steps=L_PT_STEPS, reps=3))
-    step_s = time.perf_counter() - t0
+    # 2. the pretraining step at batch 512 on fixed feature windows: an
+    # epoch graph of it (train/graphs.EpochGraph) == the eager steps on an
+    # epoch's first two steps (the eager warm-up step and the first replay),
+    # under deterministic cuDNN, from one init
     rng = np.random.default_rng(0)
     specs = torch.from_numpy(rng.normal(0, 2, (L_PT_BATCH, 49, 40, 1)).astype(np.float32)).cuda()
     labels = torch.from_numpy(rng.integers(0, 761, (L_PT_BATCH,))).cuda()
-    inputs = bench.spec_epoch_inputs(labels, 2)
+    inputs = (torch.zeros((2, L_PT_BATCH), dtype=torch.int32, device="cuda"), labels.expand(2, L_PT_BATCH).contiguous(),
+              torch.zeros((2, L_PT_BATCH), dtype=torch.bool, device="cuda"))
+
+    def fixed_specs_epoch(model):
+        """(an EpochGraph of the step, the step): one make_pretrain_step
+        update of ``model`` (flat Adam 1e-3, drop-connect seeded 1) on
+        ``specs`` with a step's labels; its rows and silence flags unread."""
+        opt = flat_adam(model.parameters(), 1e-3)
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(1)
+        step = make_pretrain_step(model, opt, None)[0].fn  # eager: the epoch's graph holds it
+
+        def body(rows, labels, is_silence):
+            m = step(specs, labels, drop)
+            return m["loss"], m["accuracy"]
+
+        return EpochGraph(body, specs.device, generators=[drop], optimizer=opt), body
+
     with deterministic_cudnn(torch):
         mg, me = bench.embedding_model("float32", "cuda"), bench.embedding_model("float32", "cuda")
-        epoch, _ = bench.spec_pretrain_epoch(mg, specs)
+        epoch, _ = fixed_specs_epoch(mg)
         lg, _ = epoch(*inputs)
-        _, body = bench.spec_pretrain_epoch(me, specs)
+        _, body = fixed_specs_epoch(me)
         le = torch.stack([body(*(t[i] for t in inputs))[0] for i in range(2)])
         torch.cuda.synchronize()
     diffs = tensor_diffs(torch, mg.state_dict(), me.state_dict())
@@ -3087,10 +3100,8 @@ def bench_phase(torch, work: Path):
           f"{bench_s:.2f} s: {line['value']} clips/s at {line['model_compute_dtype']} (f32 {line['f32_clips_per_sec']}, "
           f"bf16 {line['bf16_clips_per_sec']}), {line['flops_per_clip']} FLOP a clip, MFU {line['mfu']:.4f}; "
           f"launches {launches['bench']}")
-    print(f"phase l: pretraining step at batch {L_PT_BATCH}, graphed epochs of {L_PT_STEPS} (median of 3) "
-          f"{step_s:.2f} s: f32 {step['f32_ms_per_step']} ms {step['f32_ms_per_step_reps']}, bf16 "
-          f"{step['bf16_ms_per_step']} ms {step['bf16_ms_per_step_reps']}; graphed == eager on an epoch's first two "
-          f"steps, bitwise, under deterministic cuDNN; launches {launches['pretrain_step']}")
+    print(f"phase l: pretraining step at batch {L_PT_BATCH}: graphed == eager on an epoch's first two steps, "
+          "bitwise, under deterministic cuDNN")
     print(f"phase l: entry() card vs CPU on 8 clips: max |logit delta| {entry_err:.2e} (rtol, atol {L_MODEL_TOL}; "
           f"logits spread {spread:.2e} across the clips); "
           f"launches {launches['entry']}")
@@ -3340,17 +3351,14 @@ N_STEPS = 6  # phase n: steps held graphed == eager (the key's eager call, its c
 N_FT_EPOCHS = 2  # phase n: transfer_learn(resident=False) epochs held graphed == eager (64 steps each)
 N_TURNS = 5  # phase n: graphed and eager timings, in turns, each side this many times
 N_TIMED_STEPS = 8  # phase n: steps a turn of the step's timing at batch 64
-N_E2E_BATCH = 512  # phase n: the end-to-end rates' batch (measure_pretrain_e2e's)
-N_E2E_STEPS = 6  # phase n: timed steps of each end-to-end rate (after 3 warm ones)
 
 
-def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
+def step_program_phase(torch, pt_corpus, ft_corpus, ft_model):
     """Phase n: the per-step programs as CUDA graphs on the card (see the
     module docstring). Returns each graphed path's launches by kernel
     wrapper, the counts set to 0 just before it."""
     import copy
 
-    from multilingual_kws_tpu_torch import bench
     from multilingual_kws_tpu_torch.analysis import distance_filtering
     from multilingual_kws_tpu_torch.data.dataset import AudioDataset
     from multilingual_kws_tpu_torch.data.manifests import label_from_parent_dir
@@ -3579,15 +3587,6 @@ def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
         walls = turns({"graphed": step, "eager": step.fn},
                       lambda fn: [fn(specs, lbl, drop) for _ in range(N_TIMED_STEPS)])
         step_ms[dtype] = {k: [w / N_TIMED_STEPS * 1e3 for w in v] for k, v in walls.items()}
-    e2e_ds, e2e_files, e2e_labels = bench.pretrain_e2e_corpus(work / "n_e2e", device=dev)
-    e2e_model = bench.embedding_model("float32", dev)
-    e2e = {(graphed, prefetch): [] for graphed in (True, False) for prefetch in (0, 2)}
-    for turn in range(N_TURNS):
-        for graphed in ((True, False) if turn % 2 == 0 else (False, True)):
-            for prefetch in (0, 2):
-                e2e[graphed, prefetch].append(on_side(graphed, lambda: bench.stream_rate(
-                    e2e_model, e2e_ds, e2e_files, e2e_labels, N_E2E_BATCH, N_E2E_STEPS, prefetch)))
-    del e2e_model
     model, ds, _, _ = kept["float32"]
     val_s = turns({"graphed": True, "eager": False}, lambda graphed: on_side(
         graphed, lambda: pretrain_mod._validate(model, ds, val, val_labels, PT_BATCH, group)))
@@ -3618,11 +3617,6 @@ def step_program_phase(torch, pt_corpus, ft_corpus, ft_model, work: Path):
         print(f"phase n: pretraining step {dtype} at batch {PT_BATCH} (fixed specs), ms a step over {N_TURNS} turns "
               f"of {N_TIMED_STEPS}: graphed {spread(ms['graphed'])}, eager {spread(ms['eager'])}; graphed "
               f"{[round(x, 3) for x in ms['graphed']]}, eager {[round(x, 3) for x in ms['eager']]}")
-    for prefetch in (0, 2):
-        g, e = e2e[True, prefetch], e2e[False, prefetch]
-        print(f"phase n: end to end (bench.stream_rate) at batch {N_E2E_BATCH}, prefetch {prefetch}, clips/s over "
-              f"{N_TURNS} turns of {N_E2E_STEPS} steps: graphed {spread(g, '{:.1f}')}, eager {spread(e, '{:.1f}')}; "
-              f"graphed {[round(x, 1) for x in g]}, eager {[round(x, 1) for x in e]}")
     print(f"phase n: one validation pass ({len(val)} clips), s over {N_TURNS} turns: graphed "
           f"{spread(val_s['graphed'], '{:.4f}')}, eager {spread(val_s['eager'], '{:.4f}')}")
     print(f"phase n: cluster_and_sort ({len(alpha)} clips, 15 to train, 3 clusters), s over {N_TURNS} turns: graphed "
@@ -4493,7 +4487,7 @@ def main() -> int:
     # (m) the inference programs as CUDA graphs
     phase_m = graph_phase(torch, fe, model, ft_model, wave, Path(work.name))
     # (n) the per-step programs as CUDA graphs
-    phase_n = step_program_phase(torch, pt_corpus, corpus, ft_model, Path(work.name))
+    phase_n = step_program_phase(torch, pt_corpus, corpus, ft_model)
     # (o) the frontend's entry points and the resident transform as CUDA graphs
     phase_o = frontend_program_phase(torch, ft_model, wave, corpus, pt_corpus)
     for k in kernels:

@@ -234,7 +234,7 @@ def cmd_pretrain(args) -> None:
     from ..models.efficientnet import EfficientNet
     from ..models.kws_model import KWSEmbeddingModel, lecun_init_
     from ..parallel.mesh import initialize_distributed
-    from ..train.checkpoints import load_model
+    from ..train.checkpoints import load_model, sized_trunk
     from ..train.pretrain import PretrainConfig, pretrain
 
     device = resolve_device(args.device)
@@ -258,19 +258,22 @@ def cmd_pretrain(args) -> None:
         compute_dtype=args.compute_dtype,
         device=str(device),
     )
-    resume_params = None
+    # the trunk the flags describe, or, resuming, the one the checkpoint was trained with (prefix included)
+    resume_params, trunk_meta = None, dict(width_coefficient=args.width_coefficient,
+                                           depth_coefficient=args.depth_coefficient)
     if args.resume:
-        resume_params, rmeta = load_model(args.resume, device)
-        print(f"resuming from {args.resume} (epoch {rmeta.get('epoch')}, "
-              f"val_accuracy {rmeta.get('val_accuracy')})")
-
-    model = None
-    if args.width_coefficient != 1.0 or args.depth_coefficient != 1.0:
-        has_silence = config.silence_percentage > 0
-        has_unknown = bool(unknown_files) and config.unknown_percentage > 0
-        trunk = EfficientNet(width_coefficient=args.width_coefficient, depth_coefficient=args.depth_coefficient,
-                             compute_dtype=args.compute_dtype)
-        model = lecun_init_(KWSEmbeddingModel(len(commands) + int(has_silence) + int(has_unknown), trunk), args.seed)
+        resume_params, trunk_meta = load_model(args.resume, device)
+        print(f"resuming from {args.resume} (epoch {trunk_meta.get('epoch')}, "
+              f"val_accuracy {trunk_meta.get('val_accuracy')})")
+    trunk = sized_trunk(trunk_meta, args.compute_dtype)
+    coefficients = (args.width_coefficient, args.depth_coefficient)
+    held = (trunk.width_coefficient, trunk.depth_coefficient) if isinstance(trunk, EfficientNet) else (1.0, 1.0)
+    _require(held == coefficients,
+             f"--resume {args.resume} holds a {type(trunk).__name__} trunk with width and depth coefficients {held}, "
+             f"but --width-coefficient and --depth-coefficient say {coefficients}")
+    has_silence = config.silence_percentage > 0
+    has_unknown = bool(unknown_files) and config.unknown_percentage > 0
+    model = lecun_init_(KWSEmbeddingModel(len(commands) + int(has_silence) + int(has_unknown), trunk), args.seed)
     _, history, _ = pretrain(
         train_files,
         val_files,
@@ -280,11 +283,6 @@ def cmd_pretrain(args) -> None:
         config=config,
         model=model,
         resume_params=resume_params,
-        checkpoint_meta={
-            "kind": "embedding",
-            "width_coefficient": args.width_coefficient,
-            "depth_coefficient": args.depth_coefficient,
-        },
     )
     best = max(history["val_accuracy"]) if history["val_accuracy"] else float("nan")
     print(f"best val_accuracy {best:.4f}; checkpoints in {args.output}")
@@ -376,8 +374,10 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--resume", default=None,
                     help="checkpoint dir to resume from (load params + BN stats, keep training with a fresh "
                          "optimizer: the reference's load+recompile pattern)")
-    pt.add_argument("--width-coefficient", type=float, default=1.0, help="EfficientNet width scaling (1.0 = B0)")
-    pt.add_argument("--depth-coefficient", type=float, default=1.0, help="EfficientNet depth scaling (1.0 = B0)")
+    pt.add_argument("--width-coefficient", type=float, default=1.0,
+                    help="EfficientNet width scaling (1.0 = B0); with --resume, the checkpoint's")
+    pt.add_argument("--depth-coefficient", type=float, default=1.0,
+                    help="EfficientNet depth scaling (1.0 = B0); with --resume, the checkpoint's")
     pt.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                     help="conv/dense/BN compute dtype (params, BN stats, embedding, logits and optimizer "
                          "stay float32)")

@@ -2,7 +2,6 @@
 full-width EfficientNetB0 761-way embedding model on one card.
 
     python -m multilingual_kws_tpu_torch.bench                 # one JSON line
-    python -m multilingual_kws_tpu_torch.bench --extra --out F # the extra metrics
 
 The counterpart of the root ``bench.py`` (the JAX package's benchmark).
 ``main`` first proves on the card that the kernels the headline runs are
@@ -17,11 +16,10 @@ and exits 1. The TF-CPU reference baseline is read from
 ``benchmarks/ref_baseline.json`` and never re-measured (TensorFlow is not
 on the card's host).
 
-``--extra`` adds the frontend / model split with its MFU, the 5-shot
-fine-tune wall, the streaming real-time factor, the realtime detector's
-per-feed latency, the batch-512 pretraining step (a graphed epoch) and
-end-to-end pretraining with its input pipeline. It prints them and writes
-them to ``--out`` only.
+The port's speed on its users' traffic (the scan, the fine-tune,
+pretraining) is measured by ``kwsbench``'s cells, with their correctness
+checks; this line measures the batch-2048 embedding traffic, which no cell
+runs yet.
 
 Every size is a parameter with ``bench.py``'s default, so that the tests
 can run each function on the CPU at a tiny size; ``main`` runs the
@@ -32,16 +30,12 @@ run reports no MFU (there is no device peak to hold it to).
 from __future__ import annotations
 
 import argparse
-import datetime
 import json
-import math
 import subprocess
 import sys
-import tempfile
 import time
-import zlib
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -292,16 +286,10 @@ def _mfu(rate: float, flops: int, dtype: str, device: torch.device) -> Optional[
 
 
 def main(argv=None, device="cuda", batch: int = BATCH, target_s: float = 2.0, preflight_clips: int = 256) -> int:
-    """Prints the benchmark's JSON line (or, with ``--extra``, the extra
-    metrics); returns the exit code: 1 when the preflight fails."""
-    ap = argparse.ArgumentParser(prog="python -m multilingual_kws_tpu_torch.bench")
-    ap.add_argument("--extra", action="store_true", help="the extra metrics instead of the headline")
-    ap.add_argument("--out", default=None, help="with --extra: write the metrics here as JSON")
-    args = ap.parse_args(argv)
+    """Prints the benchmark's JSON line; returns the exit code: 1 when the
+    preflight fails. The command line takes no arguments."""
+    argparse.ArgumentParser(prog="python -m multilingual_kws_tpu_torch.bench").parse_args(argv)
     dev = resolve_device(device)
-    if args.extra:
-        run_extra(args.out, device=dev)
-        return 0
     info = card_info(dev)
     if not preflight_bit_exact_on_chip(preflight_clips, dev):
         print(json.dumps({
@@ -335,408 +323,6 @@ def main(argv=None, device="cuda", batch: int = BATCH, target_s: float = 2.0, pr
         "device": info,
     }))
     return 0
-
-
-# -- the extra metrics ----------------------------------------------------------
-
-
-def measure_decomposition(batch: int = BATCH, num_labels: int = NUM_LABELS, target_s: float = 2.0,
-                          device="cuda") -> List[Dict]:
-    """The headline split: the frontend alone on ``batch`` clips, and the
-    model alone on ``batch`` seeded feature windows in float32 and bf16,
-    each with its MFU against the card's peak for its dtype; each step one
-    program, as the headline's."""
-    from .ops.micro_torch import MicroFrontendTorch
-    from .train.graphs import ProgramGraphs
-
-    dev = resolve_device(device)
-    fe = MicroFrontendTorch(device=dev)
-    rng = np.random.default_rng(0)
-    audio = torch.from_numpy(_float_clips(rng, batch)).to(dev)
-    specs = torch.from_numpy(rng.normal(0, 2.0, (batch, 49, 40, 1)).astype(np.float32)).to(dev)
-
-    def fe_step(a, eps):
-        return torch.tanh(fe.features(a + eps).mean()) * 1e-30
-
-    fe_clips = batch / chained_time(ProgramGraphs(fe_step), audio, target_s)
-    rates = {}
-    flops = 0
-    for dtype in ("float32", "bfloat16"):
-        model = embedding_model(dtype, dev, num_labels)
-
-        def m_step(s, eps, model=model):
-            with torch.inference_mode(), exact_float32():
-                return torch.tanh(model(s + eps).float().mean()) * 1e-30
-
-        rates[dtype] = batch / chained_time(ProgramGraphs(m_step, [model]), specs, target_s)
-        flops = flops or flops_per_clip(model)
-        del model
-    out = [{"metric": f"frontend only (bit-exact, clip_features kernel), chained bs {batch}",
-            "value": round(fe_clips, 0), "unit": "clips/sec"}]
-    for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
-        out.append({"metric": f"EfficientNetB0 {num_labels}-way forward only, {short}, chained bs {batch}",
-                    "value": round(rates[dtype], 0), "unit": "clips/sec",
-                    "flops_per_clip": flops, f"mfu_vs_{short}_peak": _mfu(rates[dtype], flops, dtype, dev)})
-    return out
-
-
-def _write_tone_corpus(root: Path, words: Dict[str, float], clips: int) -> Dict[str, List[str]]:
-    """root/<word>/<i>.wav of ``tone_clip``s, the seed of each from
-    zlib.crc32 of "<word>/<i>" (the same in every process)."""
-    from .utils.wav import write_wav
-
-    paths = {}
-    for w, freq in words.items():
-        paths[w] = []
-        for i in range(clips):
-            p = root / w / f"{i}.wav"
-            p.parent.mkdir(parents=True, exist_ok=True)
-            write_wav(p, tone_clip(freq, seed=zlib.crc32(f"{w}/{i}".encode())))
-            paths[w].append(str(p))
-    return paths
-
-
-def _write_background(root: Path, seed: int) -> str:
-    from .utils.wav import write_wav
-
-    bg_dir = root / "_background_noise_"
-    bg_dir.mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(seed)
-    for i in range(2):
-        write_wav(bg_dir / f"noise_{i}.wav", np.clip(rng.normal(0, 0.05, 3 * 16000), -1, 1).astype(np.float32))
-    return str(bg_dir)
-
-
-def measure_fewshot_wallclock(tmp, device="cuda", model_factory: Optional[Callable] = None) -> Dict:
-    """BASELINE config 1: a 5-shot ``transfer_learn`` at the reference's
-    defaults (4 epochs x 1 batch of 64, LR 1e-3, unknown 50 %) and
-    ``evaluate_files_single_target`` on the held-out clips, cold (the first
-    in this process) and warm. ``model_factory()``: the transfer model to
-    train (default: transfer_learn's full-width B0)."""
-    from .train.evaluate import evaluate_files_single_target
-    from .train.finetune import transfer_learn
-
-    dev = resolve_device(device)
-    tmp = Path(tmp)
-    paths = _write_tone_corpus(tmp, {"target": 440.0, "other": 1200.0}, 12)
-    bg_dir = _write_background(tmp, 0)
-
-    def run(seed):
-        _sync(dev)
-        t0 = time.perf_counter()
-        res = transfer_learn(target="target", train_files=paths["target"][:5], val_files=paths["target"][5:],
-                             unknown_files=paths["other"], num_epochs=4, num_batches=1, batch_size=64,
-                             primary_lr=1e-3, bg_datadir=bg_dir, seed=seed, verbose=0,
-                             model=model_factory() if model_factory else None, device=dev)
-        evaluate_files_single_target(paths["target"][5:], 2, res.predict_fn(), device=dev)
-        _sync(dev)
-        return time.perf_counter() - t0
-
-    cold, warm = run(0), run(1)
-    return {"metric": "5-shot fine-tune + eval wall-clock (config 1; 4x1x64, LR 1e-3)",
-            "cold_s": round(cold, 3), "warm_s": round(warm, 3), "unit": "seconds"}
-
-
-def _transfer_model(device, **trunk_kw):
-    from .models.kws_model import lecun_init_, make_transfer_model
-
-    return lecun_init_(make_transfer_model(3, device="cpu", **trunk_kw), seed=0).to(resolve_device(device)).eval()
-
-
-def measure_realtime_latency(device="cuda", chunks_ms=(20, 100, 500), **trunk_kw) -> Dict:
-    """Online serving: the wall of one ``RealtimeDetector.feed`` (ring
-    buffer, featurize, transfer-model softmax, detector) at several chunk
-    sizes, median and p90 over max(10, 2000 / chunk) feeds after a 1 s
-    fill and two warm feeds (the predict program's eager call and its
-    capture at the feed's batch)."""
-    from .stream.realtime import RealtimeDetector
-
-    dev = resolve_device(device)
-    model = _transfer_model(dev, **trunk_kw)
-    rng = np.random.default_rng(0)
-    out = {"metric": "online RealtimeDetector feed() latency (featurize + transfer model + detector)",
-           "unit": "ms per feed (median / p90)"}
-    for chunk_ms in chunks_ms:
-        det = RealtimeDetector("kw", model, device=dev)
-        chunk = rng.normal(0, 0.1, 16 * chunk_ms).astype(np.float32)
-        det.feed(rng.normal(0, 0.1, 16000).astype(np.float32))
-        det.feed(chunk)
-        det.feed(chunk)
-        times = []
-        for _ in range(max(10, 2000 // chunk_ms)):
-            t0 = time.perf_counter()
-            det.feed(chunk)
-            times.append((time.perf_counter() - t0) * 1e3)
-        times = np.sort(np.asarray(times))
-        med = float(np.median(times))
-        out[f"chunk_{chunk_ms}ms"] = [round(med, 3), round(float(times[int(0.9 * (len(times) - 1))]), 3),
-                                      f"{chunk_ms / med:.1f}x real-time"]
-    return out
-
-
-def measure_streaming_rtf(tmp, device="cuda", num_targets: int = 120, num_distractors: int = 280,
-                          **trunk_kw) -> Dict:
-    """BASELINE config 5: streaming detection over the synthesized stream
-    (``num_targets`` tone targets among ``num_distractors`` distractors,
-    ~10 min at the defaults) with a 19-threshold sweep; the real-time
-    factor from the median of 3 passes on freshly dithered copies, after
-    one warm pass."""
-    from .stream.engine import StreamFlags, calculate_streaming_accuracy
-    from .tools.stream_synth import synthesize_stream, write_stream
-    from .utils.wav import write_wav
-
-    dev = resolve_device(device)
-    tmp = Path(tmp)
-    targets = [tone_clip(440.0, seed=s) for s in range(6)]
-    distractors = [tone_clip(900.0 + 80 * s, seed=100 + s) for s in range(8)]
-    spec = synthesize_stream("target", targets, distractors, num_targets=num_targets,
-                             num_distractors=num_distractors, gap_ms_range=(200, 900), noise_rms=0.003, seed=7)
-    wav, labels = tmp / "stream.wav", tmp / "labels.txt"
-    write_stream(spec, wav, labels)
-    audio_s = spec.waveform.shape[0] / spec.sample_rate
-    model = _transfer_model(dev, **trunk_kw)
-    thresholds = [round(0.05 * i, 2) for i in range(1, 20)]
-
-    def flags(path):
-        return StreamFlags(wav=str(path), ground_truth=str(labels), target_keyword="target",
-                           detection_thresholds=thresholds)
-
-    calculate_streaming_accuracy(model, [flags(wav)], verbose=False, device=dev)
-    rng = np.random.default_rng(11)
-    walls = []
-    for rep in range(3):
-        dithered = np.clip(spec.waveform + rng.uniform(-2e-5, 2e-5, spec.waveform.shape).astype(np.float32), -1, 1)
-        path = tmp / f"stream_timed_{rep}.wav"
-        write_wav(path, dithered)
-        _sync(dev)
-        t0 = time.perf_counter()
-        calculate_streaming_accuracy(model, [flags(path)], verbose=False, device=dev)
-        _sync(dev)
-        walls.append(time.perf_counter() - t0)
-    dt = float(np.median(walls))
-    return {"metric": "streaming KWS over long-form audio, 19-threshold sweep (config 5)",
-            "audio_seconds": round(audio_s, 1), "wall_seconds": round(dt, 4),
-            "wall_seconds_reps": [round(w, 4) for w in walls], "real_time_factor": round(audio_s / dt, 1),
-            "unit": "x real-time"}
-
-
-def spec_pretrain_epoch(model, specs: torch.Tensor, seed: int = 1):
-    """The pretraining step on fixed feature windows (no input pipeline)
-    as a resident epoch: ``(epoch, body)``, where ``epoch(idx_all, lbl_all,
-    sil_all)`` is a ``train/graphs.EpochGraph`` of ``body`` (a CUDA graph on
-    the card) and ``body(rows, labels, is_silence) -> (loss, accuracy)``
-    is one ``make_pretrain_step`` update of ``model`` (flat Adam 1e-3,
-    drop-connect from a generator seeded ``seed``) on ``specs`` with
-    ``labels``; rows and silence flags are not read."""
-    from .train.graphs import EpochGraph
-    from .train.steps import flat_adam, make_pretrain_step
-
-    dev = specs.device
-    opt = flat_adam(model.parameters(), 1e-3)
-    drop = torch.Generator(device=dev)
-    drop.manual_seed(seed)
-    step = make_pretrain_step(model, opt, None)[0].fn  # eager: the epoch's graph holds it
-
-    def body(rows, labels, is_silence):
-        m = step(specs, labels, drop)
-        return m["loss"], m["accuracy"]
-
-    return EpochGraph(body, dev, generators=[drop], optimizer=opt), body
-
-
-def spec_epoch_inputs(labels: torch.Tensor, steps: int):
-    """(steps, B) inputs of ``spec_pretrain_epoch``'s epoch: rows and
-    silence flags unread, the same labels every step."""
-    b = labels.shape[0]
-    dev = labels.device
-    return (torch.zeros((steps, b), dtype=torch.int32, device=dev), labels.expand(steps, b).contiguous(),
-            torch.zeros((steps, b), dtype=torch.bool, device=dev))
-
-
-def measure_pretrain_step(batch: int = 512, steps: int = 96, reps: int = 3, num_labels: int = NUM_LABELS,
-                          device="cuda", **trunk_kw) -> Dict:
-    """The train step alone: forward, backward, Adam and train-mode BN of
-    the embedding model at ``batch`` on seeded feature windows, timed as a
-    graphed epoch of ``steps`` steps (the counterpart of the JAX package's
-    scan) after one warm epoch of the same length; the median of ``reps``,
-    in float32 and bf16 compute."""
-    dev = resolve_device(device)
-    rng = np.random.default_rng(0)
-    specs = torch.from_numpy(rng.normal(0, 2, (batch, 49, 40, 1)).astype(np.float32)).to(dev)
-    labels = torch.from_numpy(rng.integers(0, num_labels, (batch,))).to(dev)
-    inputs = spec_epoch_inputs(labels, steps)
-    out = {"metric": f"{num_labels}-way EfficientNetB0 pretrain step (bs {batch}, fwd+bwd+adam+BN, "
-                     f"graphed epochs of {steps} steps)", "unit": "ms/step"}
-    for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
-        epoch, _ = spec_pretrain_epoch(embedding_model(dtype, dev, num_labels, **trunk_kw), specs)
-        losses, _ = epoch(*inputs)
-        if not bool(torch.isfinite(losses).all()):
-            raise RuntimeError(f"pretrain step at {dtype}: a non-finite loss")
-        times = []
-        for _ in range(reps):
-            _sync(dev)
-            t0 = time.perf_counter()
-            epoch(*inputs)
-            _sync(dev)
-            times.append((time.perf_counter() - t0) / steps)
-        sec = float(np.median(times))
-        out[f"{short}_ms_per_step"] = round(sec * 1e3, 4)
-        out[f"{short}_ms_per_step_reps"] = [round(t * 1e3, 4) for t in times]
-        out[f"{short}_clips_per_sec"] = round(batch / sec, 1)
-    return out
-
-
-def pretrain_e2e_corpus(tmp, words: int = 16, clips: int = 32, device="cuda"):
-    """The end-to-end pretraining corpus under ``tmp``: ``words`` tone words
-    of ``clips`` one-second clips each and a background. Returns (dataset
-    (seed 0, 1 % silence), files, labels)."""
-    from .data.dataset import AudioDataset
-    from .settings import standard_microspeech_model_settings
-    from .utils.wav import write_wav
-
-    tmp = Path(tmp)
-    names = [f"w{i:02d}" for i in range(words)]
-    files, labels = [], []
-    for wi, w in enumerate(names):
-        for i in range(clips):
-            p = tmp / "clips" / w / f"{i}.wav"
-            p.parent.mkdir(parents=True, exist_ok=True)
-            write_wav(p, tone_clip(300.0 + 45 * wi, seed=wi * 100 + i))
-            files.append(str(p))
-            labels.append(w)
-    dataset = AudioDataset(standard_microspeech_model_settings(words + 1), names, _write_background(tmp, 1), [],
-                           silence_percentage=1.0, seed=0, device=resolve_device(device))
-    return dataset, files, labels
-
-
-def stream_rate(model, dataset, files, labels, batch: int, steps: int, prefetch: int) -> float:
-    """Clips/s of ``steps`` streaming-pipeline pretraining steps of
-    ``model`` (a fresh flat Adam, drop-connect seeded 1) on
-    ``dataset.train_batches`` at ``batch``, ``prefetch`` batches ahead,
-    after 3 warm steps: the transform and the step programs (CUDA graphs
-    from their second calls; under ``train/graphs.disable_graphs``,
-    eager)."""
-    from .train.steps import flat_adam, make_pretrain_step
-
-    dev = dataset.device
-    drop = torch.Generator(device=dev)
-    drop.manual_seed(1)
-    step, _ = make_pretrain_step(model, flat_adam(model.parameters(), 1e-3), None)
-
-    def run(n):
-        for specs, lbl in dataset.train_batches(files, batch, n, labels=labels, single_target=False,
-                                                prefetch=prefetch):
-            step(specs, lbl, drop)
-        _sync(dev)
-
-    run(3)
-    t0 = time.perf_counter()
-    run(steps)
-    return batch * steps / (time.perf_counter() - t0)
-
-
-def measure_pretrain_e2e(tmp, compute_bound: Optional[float] = None, words: int = 16, clips: int = 32,
-                         batch: int = 512, steps: int = 12, resident_steps: int = 48, reps: int = 3,
-                         num_labels: int = NUM_LABELS, device="cuda", **trunk_kw) -> Dict:
-    """End-to-end pretraining throughput at ``batch`` with the input
-    pipeline (wav reads, batch assembly, augment and frontend kernels):
-    ``train_batches`` synchronous and with ``data/pipeline.prefetch`` (2
-    ahead), ``steps`` steps each after 3 warm ones (``stream_rate``: the
-    transform and the step programs), and synchronous once more under
-    ``train/graphs.disable_graphs`` (eager); and the resident bank with
-    each epoch a CUDA graph (``build_fused_resident_epoch``), epochs of
-    ``resident_steps`` after one warm epoch, the median of ``reps``.
-    ``compute_bound``: the float32 step's clips/s, for the resident
-    share."""
-    from .train.graphs import disable_graphs
-    from .train.pretrain import build_fused_resident_epoch
-    from .train.steps import flat_adam
-
-    dev = resolve_device(device)
-    dataset, files, labels = pretrain_e2e_corpus(tmp, words, clips, dev)
-    bank = dataset.build_resident_bank(files)
-
-    def streamed(prefetch: int) -> float:
-        model = embedding_model("float32", dev, num_labels, **trunk_kw)
-        return stream_rate(model, dataset, files, labels, batch, steps, prefetch)
-
-    def resident() -> float:
-        model = embedding_model("float32", dev, num_labels, **trunk_kw)
-        drop = torch.Generator(device=dev)
-        drop.manual_seed(1)
-        epoch = build_fused_resident_epoch(model, flat_adam(model.parameters(), 1e-3), None, dataset, bank["bank"],
-                                           drop, device=dev)
-
-        def draws():
-            d = list(dataset.host_train_indices(files, batch, resident_steps, bank, labels=labels,
-                                                single_target=False))
-            return dataset._put_batch(tuple(np.stack(a) for a in zip(*d)))
-
-        epoch(*draws())
-        _sync(dev)
-        t0 = time.perf_counter()
-        epoch(*draws())
-        _sync(dev)
-        return batch * resident_steps / (time.perf_counter() - t0)
-
-    sync_rate, prefetch_rate = streamed(0), streamed(2)
-    with disable_graphs():
-        eager_rate = streamed(0)
-    res = [resident() for _ in range(reps)]
-    med = float(np.median(res))
-    return {
-        "metric": f"{num_labels}-way pretrain END-TO-END incl. input pipeline (bs {batch})",
-        "stream_sync_clips_per_sec": round(sync_rate, 1),
-        "stream_prefetch2_clips_per_sec": round(prefetch_rate, 1),
-        "stream_sync_eager_clips_per_sec": round(eager_rate, 1),
-        "resident_graphed_clips_per_sec": round(med, 1),
-        "resident_reps_clips_per_sec": [round(r, 1) for r in res],
-        "steps_timed": {"stream_sync": steps, "stream_prefetch2": steps, "stream_sync_eager": steps,
-                        "resident_graphed": resident_steps},
-        "unit": "clips/sec",
-        "pct_of_train_step_bound": round(100 * med / compute_bound, 1) if compute_bound else None,
-    }
-
-
-def run_extra(out=None, device="cuda") -> Dict:
-    """The extra metrics at ``bench.py``'s sizes: printed as JSON and, when
-    ``out`` is given, written there (never under ``benchmarks/``)."""
-    dev = resolve_device(device)
-    info = card_info(dev)
-    print("# extra: preflight...", file=sys.stderr, flush=True)
-    if not preflight_bit_exact_on_chip(device=dev):
-        raise SystemExit("the port's frontend or augment kernel disagrees with ops/micro_exact on the device")
-    print("# extra: headline...", file=sys.stderr, flush=True)
-    ours, dtype, detail = measure_ours(device=dev)
-    base = get_baseline()
-    metrics = [{"metric": f"{METRIC}, chained", "value": round(ours, 1), "unit": "clips/sec",
-                "model_compute_dtype": dtype, "f32_clips_per_sec": round(detail["float32"], 1),
-                "bf16_clips_per_sec": round(detail["bfloat16"], 1),
-                "vs_tf_cpu_baseline": round(ours / base["clips_per_sec"], 1)
-                if not math.isnan(base["clips_per_sec"]) else None,
-                "bit_exact_on_chip": True, "baseline_provenance": base["provenance"]}]
-    print("# extra: decomposition...", file=sys.stderr, flush=True)
-    metrics += measure_decomposition(device=dev)
-    with tempfile.TemporaryDirectory(prefix="bench_extra_") as tmp:
-        print("# extra: 5-shot wall-clock...", file=sys.stderr, flush=True)
-        metrics.append(measure_fewshot_wallclock(Path(tmp) / "fewshot", device=dev))
-        print("# extra: streaming RTF...", file=sys.stderr, flush=True)
-        metrics.append(measure_streaming_rtf(tmp, device=dev))
-    print("# extra: realtime feed latency...", file=sys.stderr, flush=True)
-    metrics.append(measure_realtime_latency(device=dev))
-    print("# extra: pretrain step...", file=sys.stderr, flush=True)
-    step_metric = measure_pretrain_step(device=dev)
-    metrics.append(step_metric)
-    with tempfile.TemporaryDirectory(prefix="bench_pretrain_") as tmp:
-        print("# extra: pretrain e2e...", file=sys.stderr, flush=True)
-        metrics.append(measure_pretrain_e2e(tmp, compute_bound=step_metric["f32_clips_per_sec"], device=dev))
-    result = {"measured": f"{datetime.date.today()}, {info['name']}", "device": info, "metrics": metrics,
-              "baseline": "TF-CPU reference pipeline (per-clip microfrontend op + Keras EfficientNetB0 predict): "
-                          f"{base['clips_per_sec']} clips/sec ({base['provenance']})"}
-    print(json.dumps(result, indent=1))
-    if out:
-        Path(out).write_text(json.dumps(result, indent=1))
-    return result
 
 
 if __name__ == "__main__":

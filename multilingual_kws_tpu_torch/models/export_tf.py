@@ -32,6 +32,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from .efficientnet import EfficientNet
 from .import_tf import (
     BLOCK_LAYERS,
     EMBEDDING_DENSE,
@@ -189,19 +190,24 @@ def export_and_save(
 def convert_checkpoint_and_save(ckpt_path, dest, device="cuda") -> None:
     """The port's checkpoint (as ``train``, ``pretrain`` or ``import-tf``
     write it) -> a Keras artifact; the inverse of
-    ``import_tf.convert_and_save``. Refuses a checkpoint without the trunk's
-    BN running statistics: a working Keras model needs them."""
-    from ..train.checkpoints import load_model
+    ``import_tf.convert_and_save``. The trunk's input prefix is the one
+    ``checkpoints.sized_trunk`` rebuilds. Refuses, before any TensorFlow
+    call, a trunk that is not an EfficientNet (the Keras architecture
+    written is EfficientNetB0's) and a checkpoint without the trunk's BN
+    running statistics: a working Keras model needs them."""
+    from ..train.checkpoints import load_model, sized_trunk
 
     state, meta = load_model(ckpt_path, device)
+    with torch.device("meta"):
+        trunk = sized_trunk(meta)
+    if not isinstance(trunk, EfficientNet):
+        raise ValueError(
+            f"checkpoint {ckpt_path} holds a {type(trunk).__name__} trunk: the Keras model export writes is "
+            "EfficientNetB0's, so only an EfficientNet trunk is exported"
+        )
     if not any(k.endswith(".running_mean") for k in state):
         raise ValueError(
             f"checkpoint {ckpt_path} has no BN running statistics: the EfficientNet trunk needs them to build a "
             "working Keras model (save the model's whole state_dict)"
         )
-    export_and_save(
-        state, dest,
-        input_scale=float(meta.get("input_scale", 1.0 / 255.0)),
-        input_bias=float(meta.get("input_bias", 0.0)),
-    )
-
+    export_and_save(state, dest, input_scale=trunk.input_scale, input_bias=trunk.input_bias)

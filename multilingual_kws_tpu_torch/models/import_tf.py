@@ -279,10 +279,8 @@ def convert_and_save(tf_path, dest, device="cuda") -> None:
     """TF model -> the port's checkpoint (``train/checkpoints.py``), with the
     metadata that ``load_transfer_model`` and ``transfer_learn(
     base_model_path=...)`` size and scale the trunk from."""
-    from ..train.checkpoints import save_model
+    from ..train.checkpoints import save_model, trunk_metadata
 
     model, meta = import_tf_checkpoint(tf_path, device)
-    save_model(dest, model, metadata={
-        **meta, "source": str(tf_path), "width_coefficient": 1.0, "depth_coefficient": 1.0,
-    })
+    save_model(dest, model, metadata={**meta, "source": str(tf_path), **trunk_metadata(model.trunk)})
 

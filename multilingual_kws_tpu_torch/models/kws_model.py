@@ -11,7 +11,8 @@ Counterpart of ``multilingual_kws_tpu/models/kws_model.py``:
   (B, frames, 1024) out, pooled over the frames). Each trunk declares what
   it takes (``takes_waveform``) and its pooled axes (``pool_dims``);
 - ``KWSTransferModel``: the EfficientNetB0 trunk and embedding head ->
-  Dense 18 tanh -> Dense 3 softmax.
+  Dense 18 tanh -> Dense 3 softmax (a trunk that takes waveforms is
+  refused).
 
 Module names follow the Flax ones, so a Flax parameter path maps onto a
 ``state_dict`` key by replacing "/" with "." (``models/convert.py``), and a
@@ -105,10 +106,17 @@ class KWSEmbeddingModel(nn.Module):
 
 
 class KWSTransferModel(nn.Module):
-    """Embedding trunk + few-shot head: (B, 49, 40, 1) -> (B, 3) softmax."""
+    """Embedding trunk + few-shot head: (B, 49, 40, 1) -> (B, 3) softmax.
+    The trunk must take features: the fine-tune, scan and realtime paths
+    feed it feature windows, and pool over an NCHW map's H and W."""
 
     def __init__(self, trunk: EfficientNet, num_categories: int = 3):
         super().__init__()
+        if trunk.takes_waveform:
+            raise ValueError(
+                f"a transfer model needs a trunk that takes (B, 49, 40, 1) features, and {type(trunk).__name__} "
+                "takes waveforms: the fine-tune, scan and realtime paths feed features"
+            )
         self.trunk = trunk
         self.embedding_head = EmbeddingHead(trunk.out_channels)
         self.transfer_head = TransferHead(num_categories)

@@ -165,8 +165,9 @@ def transfer_learn(
     base_params: the base weights, a port ``state_dict`` or Flax trees (with
     base_batch_stats), when no base_model_path is given.
     model: a ``KWSTransferModel`` to train in place (e.g. a narrower trunk);
-    by default one with the checkpoint's EfficientNet coefficients (B0
-    without a checkpoint) and Flax's default initialization
+    by default one with the checkpoint's trunk (``checkpoints.sized_trunk``;
+    a trunk that takes waveforms is refused; B0 without a checkpoint) and
+    Flax's default initialization
     (``models/kws_model.lecun_init_``) from ``seed``.
     compute_dtype: "bfloat16" runs the trunk's convolutions, BN and the
     embedding head's dense layers in bf16 (parameters, BN statistics, the

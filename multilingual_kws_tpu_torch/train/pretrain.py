@@ -54,7 +54,6 @@ counts ``steps``), ``pretrain.wait`` (the losses' pull),
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence
@@ -73,7 +72,7 @@ from ..parallel import mesh
 from ..settings import ModelSettings, standard_microspeech_model_settings
 from ..utils.profiling import annotate, spanned
 from . import graphs
-from .checkpoints import BestValCheckpoint
+from .checkpoints import BestValCheckpoint, trunk_metadata
 from .graphs import EpochGraph, ProgramGraphs, check_on_device, module_program
 from .metrics import CSVLogger, save_history
 from .steps import calibrate_batch_stats, flat_adam, make_pretrain_step, sparse_ce_from_logits
@@ -245,8 +244,8 @@ def pretrain(
     ``state_dict`` of an embedding checkpoint (parameters and BN
     statistics) to start from; the optimizer starts fresh, as in the JAX
     package. checkpoint_meta: extra
-    checkpoint metadata (the trunk's coefficients, or a wav2vec 2.0
-    trunk's widths, and ``kind: embedding`` are always written).
+    checkpoint metadata (``kind: embedding`` and the trunk's
+    ``checkpoints.trunk_metadata`` are always written).
 
     Returns (model, history, dataset): the model in eval mode, and per epoch
     "loss", "accuracy" (the train steps' means), "val_loss" and
@@ -289,12 +288,7 @@ def pretrain(
         writer = rank == 0
         logger = CSVLogger(config.csvlog_dest) if config.csvlog_dest and writer else None
         ckpt = BestValCheckpoint(config.checkpoint_dir) if config.checkpoint_dir and writer else None
-        if waveform:
-            trunk_meta = {"trunk": "wav2vec2", "wav2vec2": dataclasses.asdict(model.trunk.config)}
-        else:
-            trunk_meta = {"width_coefficient": model.trunk.width_coefficient,
-                          "depth_coefficient": model.trunk.depth_coefficient}
-        meta = {"kind": "embedding", **trunk_meta, **(checkpoint_meta or {})}
+        meta = {"kind": "embedding", **trunk_metadata(model.trunk), **(checkpoint_meta or {})}
         history: Dict[str, List[float]] = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
 
         steps_per_epoch = config.steps_per_epoch or max(1, len(train_files) // config.batch_size)

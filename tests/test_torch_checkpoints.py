@@ -251,6 +251,13 @@ def test_metadata_and_state(tmp_path):
     assert ck.load_metadata(tmp_path / "p")["has_batch_stats"] is False
 
 
+def test_sized_trunk_refuses_an_unknown_trunk():
+    """A checkpoint's metadata comes from outside the program: a trunk kind
+    the package does not know is refused, by name, not built as a B0."""
+    with pytest.raises(ValueError, match="unknown trunk 'conformer'.*'wav2vec2' and EfficientNet"):
+        ck.sized_trunk({"trunk": "conformer", "width_coefficient": 1.0})
+
+
 def test_refuses_a_jax_checkpoint(made):
     paths, _ = made
     with pytest.raises(ValueError, match="flax_to_state_dict"):

@@ -191,3 +191,40 @@ def test_pretrain_then_train(ws, dtype):
     state, tmeta = ck.load_model(work / "alpha", device="cpu")
     assert (tmeta["width_coefficient"], tmeta["depth_coefficient"]) == (0.25, 0.25)
     assert all(torch.equal(state[k], t) for k, t in emb.items() if k.split(".")[0] in ("trunk", "embedding_head"))
+
+
+def test_pretrain_resumes_with_the_checkpoint_s_trunk(ws):
+    """``pretrain --resume`` rebuilds the trunk from the resumed checkpoint,
+    input prefix included (an imported Keras model carries one), and exits
+    when the coefficient flags contradict it."""
+    from multilingual_kws_tpu_torch.models.efficientnet import EfficientNet
+    from multilingual_kws_tpu_torch.models.kws_model import KWSEmbeddingModel, lecun_init_
+
+    root, paths, _ = ws
+    corpus = paths["corpus"]
+    work = root / "resume"
+    work.mkdir()
+    words = ["bravo", "charlie"]
+    (work / "commands.txt").write_text("\n".join(words) + "\n")
+    (work / "train_files.txt").write_text("\n".join(f for w in words for f in corpus[w][:6]) + "\n")
+    (work / "val_files.txt").write_text("\n".join(f for w in words for f in corpus[w][6:]) + "\n")
+    base = lecun_init_(KWSEmbeddingModel(3, EfficientNet(width_coefficient=0.25, depth_coefficient=0.25,
+                                                         input_scale=0.5, input_bias=-3.0)), 0)
+    ck.save_model(work / "base", base, {"kind": "embedding", "num_labels": 3, **ck.trunk_metadata(base.trunk)})
+    args = [
+        "pretrain", "--commands", str(work / "commands.txt"), "--train-files", str(work / "train_files.txt"),
+        "--val-files", str(work / "val_files.txt"), "--background-noise", corpus["bg_dir"],
+        "--output", str(work / "emb"), "--num-epochs", "1", "--steps-per-epoch", "1", "--batch-size", "8",
+        "--silence-percentage", "10", "--resume", str(work / "base"), "--depth-coefficient", "0.25",
+        "--device", "cpu",
+    ]
+    with pytest.raises(SystemExit, match=r"EfficientNet trunk with width and depth coefficients \(0.25, 0.25\), "
+                                         r"but --width-coefficient and --depth-coefficient say \(0.5, 0.25\)"):
+        port_cli.main(args + ["--width-coefficient", "0.5"])
+    assert not (work / "emb").exists()
+    port_cli.main(args + ["--width-coefficient", "0.25"])
+    meta = ck.load_metadata(work / "emb")
+    assert (meta["width_coefficient"], meta["depth_coefficient"]) == (0.25, 0.25)
+    assert (meta["input_scale"], meta["input_bias"]) == (0.5, -3.0)
+    state, _ = ck.load_model(work / "emb", device="cpu")
+    assert any(not torch.equal(state[k], t) for k, t in base.state_dict().items())

@@ -135,7 +135,6 @@ ENTRY_POINTS = {
     "DSCNN": lambda: dscnn.DSCNN(3),
     "Wav2Vec2Embedder": lambda: wav2vec2_embed.Wav2Vec2Embedder(model=object(), extractor=object()),
     "bench_main": lambda: bench.main([]),
-    "bench_extra": lambda: bench.main(["--extra"]),
     "bench_preflight": lambda: bench.preflight_bit_exact_on_chip(8),
     "graft_entry": lambda: graft_entry.entry(),
     "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),

@@ -245,6 +245,35 @@ def test_pretrain_on_cpu(pretrained, corpus):
     assert all(torch.equal(sd[k], v) for k, v in emb.items())
 
 
+def test_a_checkpoint_rebuilds_its_trunk_s_input_prefix(corpus, tmp_path):
+    """``pretrain()`` records a B0 trunk's input prefix where it is not
+    Keras' default (an imported Keras model's is not): the checkpoint
+    rebuilds the trained model, fine-tuning from it keeps the prefix, and
+    ``load_transfer_model`` rebuilds the fine-tuned model saved with its
+    metadata."""
+    trunk = EfficientNet(width_coefficient=0.25, depth_coefficient=0.1, input_scale=0.5, input_bias=-3.0)
+    config = _config(num_epochs=1, steps_per_epoch=2, checkpoint_dir=str(tmp_path / "emb"))
+    model, _, _ = _run(corpus, config, model=lecun_init_(KWSEmbeddingModel(4, trunk), 0))
+    meta = ck.load_metadata(tmp_path / "emb")
+    assert (meta["input_scale"], meta["input_bias"]) == (0.5, -3.0)
+    rebuilt = KWSEmbeddingModel(4, ck.sized_trunk(meta))
+    rebuilt.load_state_dict(ck.load_model(tmp_path / "emb", device="cpu")[0], strict=True)
+    x = torch.from_numpy(_inputs(4))
+    with torch.no_grad():
+        assert torch.equal(rebuilt.eval()(x), model(x))
+    result = transfer_learn(
+        target="alpha", train_files=corpus["alpha"][:5], val_files=corpus["alpha"][5:8],
+        unknown_files=corpus["unknown_files"], num_epochs=1, batch_size=8, bg_datadir=corpus["bg_dir"], seed=0,
+        verbose=0, base_model_path=tmp_path / "emb", device="cpu",
+    )
+    assert (result.model.trunk.input_scale, result.model.trunk.input_bias) == (0.5, -3.0)
+    ck.save_model(tmp_path / "alpha", result.model, {"kind": "transfer", **ck.trunk_metadata(result.model.trunk)})
+    loaded, _ = ck.load_transfer_model(tmp_path / "alpha", device="cpu")
+    assert (loaded.trunk.input_scale, loaded.trunk.input_bias) == (0.5, -3.0)
+    with torch.no_grad():
+        assert torch.equal(loaded(x), result.model.eval()(x))
+
+
 def test_scanned_epoch_is_the_default_and_equals_the_step_loop(corpus):
     """``scan_epoch`` defaults to True, as in the JAX package: each resident
     epoch is one device program (``build_fused_resident_epoch``; on the card

@@ -41,7 +41,6 @@ from helpers import make_corpus, tiny_embedding_model
 from multilingual_kws_tpu.analysis import distance_filtering as jax_df
 from multilingual_kws_tpu.parallel import mesh as jax_mesh
 from multilingual_kws_tpu.train import pretrain as jax_pretrain
-from multilingual_kws_tpu_torch import bench
 from multilingual_kws_tpu_torch.analysis import distance_filtering
 from multilingual_kws_tpu_torch.data.dataset import AudioDataset
 from multilingual_kws_tpu_torch.data.manifests import label_from_parent_dir
@@ -272,9 +271,9 @@ def test_step_program_keys(corpus):
 
 
 def test_epoch_bodies_call_no_program(corpus, monkeypatch):
-    """The resident epochs (and the bench's spec epoch) run the steps'
-    eager functions: a program called inside an ``EpochGraph`` capture
-    would replay a graph inside another graph's capture."""
+    """The resident epochs run the steps' eager functions: a program called
+    inside an ``EpochGraph`` capture would replay a graph inside another
+    graph's capture."""
     def boom(self, *args):
         raise AssertionError("a program called inside an epoch")
 
@@ -288,10 +287,8 @@ def test_epoch_bodies_call_no_program(corpus, monkeypatch):
     pt_model = lecun_init_(KWSEmbeddingModel(3, _residual_trunk()), 0)
     pt = build_fused_resident_epoch(pt_model, steps.flat_adam(pt_model.parameters(), 1e-3), None, ds, bank["bank"],
                                     torch.Generator().manual_seed(1), device="cpu")
-    spec, _ = bench.spec_pretrain_epoch(lecun_init_(KWSEmbeddingModel(3, _residual_trunk()), 0),
-                                        torch.ones(4, 49, 40, 1))
     monkeypatch.setattr(graphs.ProgramGraphs, "__call__", boom)
-    for epoch in (ft, pt, spec):
+    for epoch in (ft, pt):
         losses, _ = epoch(*inputs)
         assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
 

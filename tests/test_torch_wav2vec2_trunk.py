@@ -292,3 +292,71 @@ def test_one_tiny_pretrain_epoch_on_the_waveform_path(tmp_path, monkeypatch):
     assert any(not torch.equal(v, before[k]) for k, v in m.state_dict().items())
     meta = load_metadata(tmp_path / "ckpt")
     assert meta["trunk"] == "wav2vec2" and meta["wav2vec2"]["hidden_size"] == 32 and "width_coefficient" not in meta
+
+
+def test_a_pretrained_checkpoint_rebuilds_its_wav2vec2_trunk(tmp_path):
+    """``pretrain()``'s checkpoint of an XLS-R model names its trunk and
+    config: ``sized_trunk`` rebuilds a ``Wav2Vec2Trunk`` of that config, whose
+    embedding model takes the saved state strictly and gives the trained
+    model's logits."""
+    from multilingual_kws_tpu_torch.train import checkpoints as ck
+    from multilingual_kws_tpu_torch.train import pretrain as pretrain_mod
+
+    corpus = _corpus(tmp_path)
+    config = pretrain_mod.PretrainConfig(num_labels=5, batch_size=8, num_epochs=1, steps_per_epoch=2,
+                                         learning_rate=1e-3, shuffle_seed=1, checkpoint_dir=str(tmp_path / "ckpt"),
+                                         device="cpu")
+    trained, _, _ = pretrain_mod.pretrain(corpus["train"], corpus["val"], corpus["words"], corpus["bg_dir"],
+                                          config=config, model=tiny_model(3), verbose=0)
+    trunk = ck.sized_trunk(ck.load_metadata(tmp_path / "ckpt"))
+    assert isinstance(trunk, Wav2Vec2Trunk) and trunk.config == TINY
+    rebuilt = KWSEmbeddingModel(LABELS, trunk)
+    rebuilt.load_state_dict(ck.load_model(tmp_path / "ckpt", device="cpu")[0], strict=True)
+    x = waves()
+    with torch.no_grad():
+        assert torch.equal(rebuilt.eval()(x), trained(x))
+
+
+@pytest.fixture(scope="module")
+def xlsr_checkpoint(tmp_path_factory):
+    """A tiny XLS-R embedding model saved as ``pretrain()`` saves one."""
+    from multilingual_kws_tpu_torch.train import checkpoints as ck
+
+    path = tmp_path_factory.mktemp("xlsr") / "emb"
+    model = tiny_model()
+    ck.save_model(path, model, {"kind": "embedding", "num_labels": LABELS, **ck.trunk_metadata(model.trunk)})
+    return path
+
+
+def _refusals():
+    from multilingual_kws_tpu_torch.models import export_tf
+    from multilingual_kws_tpu_torch.models.kws_model import KWSTransferModel
+    from multilingual_kws_tpu_torch.train import checkpoints as ck
+    from multilingual_kws_tpu_torch.train.finetune import transfer_learn
+
+    features = "needs a trunk that takes \\(B, 49, 40, 1\\) features, and Wav2Vec2Trunk takes waveforms"
+    return {
+        "KWSTransferModel": (lambda path, out: KWSTransferModel(Wav2Vec2Trunk(TINY)), features),
+        "load_transfer_model": (lambda path, out: ck.load_transfer_model(path, device="cpu"), features),
+        "transfer_learn": (lambda path, out: transfer_learn("x", [], [], [], base_model_path=path, device="cpu"),
+                           features),
+        "convert_checkpoint_and_save": (
+            lambda path, out: export_tf.convert_checkpoint_and_save(path, out / "o.keras", device="cpu"),
+            "holds a Wav2Vec2Trunk trunk: the Keras model export writes is EfficientNetB0's"),
+    }
+
+
+@pytest.mark.parametrize("entry", ["KWSTransferModel", "load_transfer_model", "transfer_learn",
+                                   "convert_checkpoint_and_save"])
+def test_the_feature_paths_refuse_a_waveform_trunk(entry, xlsr_checkpoint, tmp_path, monkeypatch):
+    """The fine-tune, scan, realtime and export paths take features (and the
+    export writes B0's Keras layers): each refuses the XLS-R trunk, or its
+    checkpoint, with a message that says so, before any training or
+    TensorFlow call (TensorFlow is made unimportable here)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    call, message = _refusals()[entry]
+    with pytest.raises(ValueError, match=message):
+        call(xlsr_checkpoint, tmp_path)
+    assert not (tmp_path / "o.keras").exists()
