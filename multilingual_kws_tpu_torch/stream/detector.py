@@ -6,9 +6,11 @@ over per-hop softmax outputs, reliability gating (minimum count / quarter
 window span), threshold + label-change + suppression logic.
 
 Re-designed for throughput: the reference replays the full inference array
-once per threshold in Python (batch_streaming_analysis.py:126-177); here one
-pass over time updates all thresholds at once with vectorized numpy state —
-identical per-threshold outputs.
+once per threshold in Python (batch_streaming_analysis.py:126-177); here the
+window average and the runs above and below each threshold are array passes
+shared by all thresholds, each run's successor fire is a sorted search, and
+each threshold walks only its chain of fires: identical per-threshold
+outputs.
 
 The port's own copy of ``multilingual_kws_tpu/stream/detector.py`` (numpy only): the port imports
 nothing of the JAX package.
@@ -34,14 +36,24 @@ class DetectorParams:
     target_id: int = 2
 
 
-def _next_true_table(mask: np.ndarray) -> np.ndarray:
-    """out[i] = smallest j >= i with mask[j], or n if none (len n+1)."""
-    n = mask.shape[0]
-    idxs = np.where(mask, np.arange(n, dtype=np.int64), np.int64(n))
-    out = np.full(n + 1, n, dtype=np.int64)
-    if n:
-        out[:n] = np.minimum.accumulate(idxs[::-1])[::-1]
-    return out
+def _run_starts(masks: np.ndarray) -> List[np.ndarray]:
+    """Row k's run starts: the sorted j with masks[k, j] and not
+    masks[k, j - 1] (j = 0 where masks[k, 0]), one array a row."""
+    rows, n = masks.shape
+    starts = np.empty_like(masks)
+    starts[:, :1] = masks[:, :1]
+    np.greater(masks[:, 1:], masks[:, :-1], out=starts[:, 1:])
+    # one flat search: np.nonzero of a 2-D mask costs ten times as much
+    row, j = np.divmod(np.flatnonzero(starts), n)
+    return np.split(j, np.searchsorted(row, np.arange(1, rows)))
+
+
+class Detections(dict):
+    """``{threshold: (found_words, found_words_w_confidences)}``, a plain
+    dict of mutable lists, with ``hops``: the reliable hops the detector
+    stepped through (the engine counts them on its ``engine.detect`` span)."""
+
+    hops = 0
 
 
 def detect_all_thresholds(
@@ -52,30 +64,32 @@ def detect_all_thresholds(
     target_name: str = "target",
 ) -> Dict[float, Tuple[List[List], List[List]]]:
     """Returns {threshold: (found_words, found_words_w_confidences)} where
-    found_words = [[label, time_ms], ...] — exactly the reference's replay
-    output (calculate_streaming_accuracy, batch_streaming_analysis.py:140-177).
+    found_words = [[label, time_ms], ...] (int ms) and the other
+    [[label, time_ms, score], ...] (float score), Python lists of Python
+    numbers: exactly the reference's replay output
+    (calculate_streaming_accuracy, batch_streaming_analysis.py:140-177).
+    The dict is a ``Detections``, which also carries the reliable hop count.
 
-    Two vectorization layers over the reference's per-threshold Python
-    replay: the sliding window average is closed-form (one cumsum + one
-    searchsorted giving every hop's window start), and the per-threshold
-    fire/reset automaton advances by JUMPS between state changes
-    (precomputed next-above/next-below tables + a searchsorted for the
-    suppression horizon) instead of visiting every hop — O(detections)
-    state steps, not O(hops). Semantics identical to the sequential
-    replay: unreliable hops (count < minimum_count or window span <
-    window/4) change no state; a target fires from the silence state with
-    no elapsed gate (time-since-last is inf there,
+    Vectorized over the reference's per-threshold Python replay: the
+    sliding window average is closed-form (one cumsum + one searchsorted
+    giving every hop's window start); the runs above and below every
+    threshold come from one 2-D pass; each run above's successor fire (its
+    suppression horizon, the reset after it, the next run above) is three
+    searchsorted over that threshold's run starts; and the Python loop
+    only follows the chain of fires through those successors, so it is
+    O(detections) in Python ints, not O(hops). Semantics identical to the
+    sequential replay: unreliable hops (count < minimum_count or window
+    span < window/4) change no state; a target fires from the silence
+    state with no elapsed gate (time-since-last is inf there,
     single_target_recognize_commands.py:187-191); from the target state a
     reset needs score strictly below threshold AND suppression_ms elapsed
-    since the last fire. tests/test_detector.py pins equivalence against
-    a direct port of the sequential loop on randomized inputs."""
+    since the last fire. tests/test_torch_stream_detect.py holds it ``==``
+    to one ``SingleTargetRecognizeCommands`` replay a threshold."""
     inferences = np.asarray(inferences)
     times_ms = np.asarray(times_ms, dtype=np.int64)
     t_steps = inferences.shape[0]
     thr_list = [float(th) for th in thresholds]
-    found: Dict[float, Tuple[List[List], List[List]]] = {
-        th: ([], []) for th in thr_list
-    }
+    found = Detections((th, ([], [])) for th in thr_list)
     if t_steps == 0:
         return found
 
@@ -95,33 +109,46 @@ def detect_all_thresholds(
     )
     scores = (cs[1 : t_steps + 1] - cs[starts]) / counts
 
-    r_idx = np.nonzero(reliable)[0]
+    r_idx = np.flatnonzero(reliable)
     sc = scores[r_idx]
     tms = times_ms[r_idx]
     n = r_idx.shape[0]
+    found.hops = n
+    if n == 0 or not thr_list:
+        return found
 
-    for th in thr_list:
-        next_above = _next_true_table(sc > th)
-        next_below = _next_true_table(sc < th)
+    ths = np.asarray(thr_list, dtype=np.float64)[:, None]
+    above = sc > ths
+    # one column past the last hop, below nothing: a reset from there is none
+    below = np.zeros((len(thr_list), n + 1), dtype=bool)
+    np.less(sc, ths, out=below[:, :n])
+
+    for k, (th, a, b) in enumerate(zip(thr_list, _run_starts(above), _run_starts(below))):
+        # Every fire is the start of a run of above-threshold hops: the
+        # first hop above after a reset (which is below) or, from the
+        # silence state at the start, the first hop above. For each run
+        # start a (a fire there or not), the next fire:
+        # - the state may reset from rf on: the first hop past a and past
+        #   the suppression horizon (time strictly later than now +
+        #   suppression_ms);
+        rf = np.maximum(np.searchsorted(tms, tms[a] + params.suppression_ms, side="right"), a + 1)
+        # - it resets at the first hop strictly below the threshold from rf
+        #   on: rf itself, or the start of the next run below (n: never);
+        reset = np.where(below[k, rf], rf, np.append(b, n)[np.searchsorted(b, rf)])
+        # - the next fire opens the first run above after the reset
+        #   (len(a): none).
+        succ = np.searchsorted(a, reset + 1).tolist()
+        # The chain of fires from the first run above; succ[i] > i.
+        chain, i = [], 0
+        while i < len(succ):
+            chain.append(i)
+            i = succ[i]
+        fires = a[chain]
+        # a threshold given twice fills its lists twice, as the replay does
         fw, fwc = found[th]
-        pos = 0
-        while True:
-            # silence state: the first above-threshold reliable hop fires
-            pos = next_above[pos]
-            if pos >= n:
-                break
-            now = int(tms[pos])
-            fw.append([target_name, now])
-            fwc.append([target_name, now, float(sc[pos])])
-            # target state: reset at the first hop strictly below the
-            # threshold AND past the suppression horizon
-            horizon = int(
-                np.searchsorted(tms, now + params.suppression_ms, side="right")
-            )
-            pos = next_below[max(pos + 1, horizon)]
-            if pos >= n:
-                break
-            pos += 1
+        now = tms[fires].tolist()
+        fw.extend([target_name, t] for t in now)
+        fwc.extend([target_name, t, s] for t, s in zip(now, sc[fires].tolist()))
 
     return found
 

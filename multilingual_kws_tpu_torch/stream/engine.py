@@ -25,8 +25,11 @@ Under a profiler a call records its stages as spans
 stream went to the frontend as the file's int16 samples), ``engine.cast``
 (only where a float or non-int16 stream is quantised to int16),
 ``engine.frontend`` and ``engine.predict`` a chunk (counts ``batches``,
-``windows``), ``engine.wait`` (the one pull), and ``engine.detect`` and
-``engine.score`` a set of flags.
+``windows``), ``engine.wait`` (the one pull), and a set of flags'
+``engine.detect`` (counts ``hops``, the reliable hops, and ``detections``,
+the fires summed over thresholds) and ``engine.score`` (counts ``found``,
+the words scored summed over thresholds, and ``ground_truth``, the file's
+entries, parsed once for all thresholds).
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from ..train.graphs import eval_forward, serve
 from ..utils.profiling import annotate, spanned
 from ..utils.wav import read_wav
 from .detector import DetectorParams, detect_all_thresholds
-from .stats import StreamingAccuracyStats
+from .stats import StreamingAccuracyStats, read_ground_truth_file
 
 
 @dataclass(frozen=True)
@@ -201,6 +204,16 @@ def model_predict_fn(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.T
     return serve(model, eval_forward)
 
 
+def window_times_ms(audio_data_end: int, stride_samples: int, sample_rate: int) -> np.ndarray:
+    """Each window's start in whole ms, the reference's ``int(off * 1000 /
+    sample_rate)`` for off in ``range(0, audio_data_end, stride_samples)``,
+    in int64 arithmetic: the true quotient lies at least 1/sample_rate
+    below the next integer, far more than float64 rounds it by at any
+    stream length, so truncating it and flooring the exact quotient
+    agree."""
+    return np.arange(0, audio_data_end, stride_samples, dtype=np.int64) * 1000 // sample_rate
+
+
 @spanned("engine.scan")
 def calculate_streaming_accuracy(
     predict_fn: Callable,
@@ -248,10 +261,7 @@ def calculate_streaming_accuracy(
         else:
             inferences = np.zeros((0, 3), np.float32)
 
-    times_ms = np.array(
-        [int(off * 1000 / sample_rate) for off in range(0, audio_data_end, stride_samples)],
-        dtype=np.int64,
-    )
+    times_ms = window_times_ms(audio_data_end, stride_samples, sample_rate)
     n = min(len(times_ms), inferences.shape[0])
     times_ms = times_ms[:n]
 
@@ -263,18 +273,23 @@ def calculate_streaming_accuracy(
             minimum_count=flags.minimum_count,
             target_id=2,
         )
-        with annotate("engine.detect"):
+        with annotate("engine.detect") as span:
             per_thresh = detect_all_thresholds(
                 inferences[:n], times_ms, flags.detection_thresholds, params,
                 target_name=flags.target_keyword,
             )
+            span.count(hops=per_thresh.hops, detections=sum(len(fw) for fw, _ in per_thresh.values()))
         res_thresh = {}
-        with annotate("engine.score"):
+        with annotate("engine.score") as span:
+            if flags.detection_thresholds:
+                ground_truth = read_ground_truth_file(flags.ground_truth)
+                span.count(ground_truth=len(ground_truth))
             for threshold in flags.detection_thresholds:
                 found, found_w_conf = per_thresh[float(threshold)]
                 stats = StreamingAccuracyStats(target_keyword=flags.target_keyword)
-                stats.read_ground_truth_file(flags.ground_truth)
+                stats.set_ground_truth(ground_truth)
                 stats.calculate_accuracy_stats(found, -1, flags.time_tolerance_ms)
+                span.count(found=len(found))
                 if verbose:
                     print(f"results for {threshold:0.2f}")
                     stats.print_accuracy_stats()

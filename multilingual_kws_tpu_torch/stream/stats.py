@@ -81,72 +81,78 @@ class StreamingAccuracyStats:
         """Greedy matching up to a time horizon (accuracy_utils.py:93-203).
 
         found_words: [[label, time_ms], ...]; up_to_time_ms == -1 means all.
+
+        The reference's loops (every found word scans the ground truth, every
+        ground-truth entry scans the found words) as searches in sorted
+        times, with the same counters:
+        - a found word matches the first entry in time order with
+          earliest <= t <= latest and t <= latest_possible: the first entry
+          with t >= earliest, if it is in range;
+        - it is correct when the labels agree and no earlier found word (in
+          list order) matched that entry's time; an earlier match is keyed on
+          the time, and every word matching time t matched its first entry;
+        - an entry with t < latest_possible is missed when no found time
+          lies strictly inside (t - tol, t + tol): time - tol and
+          time + tol both rise with the sorted found times, so the words
+          with time - tol < t and those with time + tol <= t are two
+          prefixes, and some word lies inside exactly when the first
+          prefix is longer.
         """
-        latest_possible = (
-            np.inf if up_to_time_ms == -1 else up_to_time_ms + time_tolerance_ms
-        )
-        self._how_many_gt = 0
+        tol = time_tolerance_ms
+        latest_possible = np.inf if up_to_time_ms == -1 else up_to_time_ms + tol
+        gt_labels = [label for label, _ in self._gt_occurrence]
+        gt_times = np.array([t for _, t in self._gt_occurrence])
+        n_gt = gt_times.shape[0]
+
+        # the entries up to the horizon: a prefix of the sorted times
+        self._how_many_gt = int(np.searchsorted(gt_times, latest_possible, side="right"))
         self._how_many_gt_target = 0
         self._how_many_gt_unknown_or_silence = 0
-        for label, t in self._gt_occurrence:
-            if t > latest_possible:
-                break
-            self._how_many_gt += 1
+        for label in gt_labels[: self._how_many_gt]:
             if label in (SILENCE_LABEL, UNKNOWN_WORD_LABEL):
                 self._how_many_gt_unknown_or_silence += 1
             elif label == self.target_keyword:
                 self._how_many_gt_target += 1
 
-        self._how_many_fp = 0
-        self._how_many_c = 0
-        self._how_many_w = 0
-        self._how_many_fn = 0
         words = [SILENCE_LABEL, UNKNOWN_WORD_LABEL, self.target_keyword]
         self._which_matched = {w: 0 for w in words}
         self._which_wrong = {w: 0 for w in words}
 
-        has_gt_matched = set()
-        for fw in found_words:
-            found_label, found_time = fw[0], fw[1]
-            earliest = found_time - time_tolerance_ms
-            latest = found_time + time_tolerance_ms
-            matched = False
-            for gt_label, gt_time in self._gt_occurrence:
-                if gt_time > latest or gt_time > latest_possible:
-                    break
-                if gt_time < earliest:
-                    continue
-                if gt_label == found_label and gt_time not in has_gt_matched:
-                    self._how_many_c += 1
-                    self._which_matched[found_label] += 1
-                else:
-                    self._how_many_w += 1
-                    if (
-                        gt_label in (UNKNOWN_WORD_LABEL, SILENCE_LABEL)
-                        and found_label == self.target_keyword
-                    ):
-                        self._which_wrong[gt_label] += 1
-                has_gt_matched.add(gt_time)
-                matched = True
-                break
-            if not matched:
-                self._how_many_fp += 1
-        self._how_many_gt_matched = len(has_gt_matched)
+        found_labels = [fw[0] for fw in found_words]
+        found_times = np.array([fw[1] for fw in found_words])
+        first = np.searchsorted(gt_times, found_times - tol, side="left")
+        matched = first < n_gt
+        if n_gt:
+            candidate = gt_times[np.minimum(first, n_gt - 1)]
+            matched &= (candidate <= found_times + tol) & (candidate <= latest_possible)
+        which = np.flatnonzero(matched)
+        entry = first[which]
+        # the first found word to match each entry (np.unique's return_index
+        # is the first occurrence)
+        new_entry = np.zeros(which.shape[0], dtype=bool)
+        new_entry[np.unique(entry, return_index=True)[1]] = True
+        self._how_many_gt_matched = int(np.count_nonzero(new_entry))
 
-        # false negatives: GT occurrences with no detection nearby
-        for gt_label, gt_time in self._gt_occurrence:
-            if not gt_time < latest_possible:
-                continue
-            missed = True
-            for fw in found_words:
-                found_time = fw[1]
-                if (
-                    gt_time < found_time + time_tolerance_ms
-                    and gt_time > found_time - time_tolerance_ms
-                ):
-                    missed = False
-            if missed:
-                self._how_many_fn += 1
+        self._how_many_fp = len(found_labels) - which.shape[0]
+        self._how_many_c = 0
+        self._how_many_w = 0
+        for f, e, new in zip(which.tolist(), entry.tolist(), new_entry.tolist()):
+            found_label, gt_label = found_labels[f], gt_labels[e]
+            if new and gt_label == found_label:
+                self._how_many_c += 1
+                self._which_matched[found_label] += 1
+            else:
+                self._how_many_w += 1
+                if gt_label in (UNKNOWN_WORD_LABEL, SILENCE_LABEL) and found_label == self.target_keyword:
+                    self._which_wrong[gt_label] += 1
+
+        # false negatives: entries before the horizon with no found word
+        # strictly within the tolerance
+        ordered = np.sort(found_times)
+        t = gt_times[: np.searchsorted(gt_times, latest_possible, side="left")]
+        opened = np.searchsorted(ordered - tol, t, side="left")  # words with time - tol < t
+        closed = np.searchsorted(ordered + tol, t, side="right")  # words with time + tol <= t
+        self._how_many_fn = int(np.count_nonzero(opened <= closed))
 
     def print_accuracy_stats(self, do_print: bool = True):
         """Human-readable info + stats dict (accuracy_utils.py:207-251)."""
