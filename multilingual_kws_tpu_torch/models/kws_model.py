@@ -6,10 +6,12 @@ Counterpart of ``multilingual_kws_tpu/models/kws_model.py``:
   relu -> Dense 1024 relu -> Dense 192 selu (the embedding, reference layer
   "dense_2") -> Dense num_labels logits. The trunk is EfficientNetB0
   (``models/efficientnet.py``: (B, 49, 40, 1) features in, an NCHW map out,
-  pooled over H and W) or the XLS-R 300M wav2vec 2.0 trunk
-  (``models/wav2vec2.py``: (B, samples) normalized 16 kHz waveforms in,
-  (B, frames, 1024) out, pooled over the frames). Each trunk declares what
-  it takes (``takes_waveform``) and its pooled axes (``pool_dims``);
+  pooled over H and W) or a wav2vec 2.0 trunk, XLS-R 300M
+  (``models/wav2vec2.py``) or the rel-pos Conformer
+  (``models/wav2vec2_conformer.py``): (B, samples) normalized 16 kHz
+  waveforms in, (B, frames, 1024) out, pooled over the frames. Each trunk
+  declares what it takes (``takes_waveform``) and its pooled axes
+  (``pool_dims``);
 - ``KWSTransferModel``: the EfficientNetB0 trunk and embedding head ->
   Dense 18 tanh -> Dense 3 softmax (a trunk that takes waveforms is
   refused).
@@ -40,6 +42,7 @@ from torch import nn
 from .. import resolve_device
 from .efficientnet import EfficientNet
 from .wav2vec2 import Wav2Vec2Trunk
+from .wav2vec2_conformer import Wav2Vec2ConformerTrunk
 
 EMBEDDING_DIM = 192
 
@@ -85,10 +88,11 @@ class KWSEmbeddingModel(nn.Module):
     """Trunk + embedding head + classifier logits (the pretraining model).
 
     ``trunk``: an ``EfficientNet``, which takes (B, 49, 40, 1) features, or
-    a ``Wav2Vec2Trunk``, which takes (B, samples) normalized waveforms
-    (``trunk.takes_waveform``); the head pools over ``trunk.pool_dims``."""
+    a ``Wav2Vec2Trunk`` or ``Wav2Vec2ConformerTrunk``, which take (B,
+    samples) normalized waveforms (``trunk.takes_waveform``); the head pools
+    over ``trunk.pool_dims``."""
 
-    def __init__(self, num_labels: int, trunk: Union[EfficientNet, Wav2Vec2Trunk]):
+    def __init__(self, num_labels: int, trunk: Union[EfficientNet, Wav2Vec2Trunk, Wav2Vec2ConformerTrunk]):
         super().__init__()
         self.trunk = trunk
         self.embedding_head = EmbeddingHead(trunk.out_channels, trunk.pool_dims)
@@ -115,7 +119,8 @@ class KWSTransferModel(nn.Module):
         if trunk.takes_waveform:
             raise ValueError(
                 f"a transfer model needs a trunk that takes (B, 49, 40, 1) features, and {type(trunk).__name__} "
-                "takes waveforms: the fine-tune, scan and realtime paths feed features"
+                "takes waveforms, as both wav2vec 2.0 trunks (Wav2Vec2Trunk, Wav2Vec2ConformerTrunk) do: the "
+                "fine-tune, scan and realtime paths feed features"
             )
         self.trunk = trunk
         self.embedding_head = EmbeddingHead(trunk.out_channels)
@@ -144,9 +149,11 @@ def make_embedding_model(num_labels: int, device="cuda", trunk: Optional[nn.Modu
     (B, 49, 40, 1) features, with PyTorch's default initialization
     (pretraining starts from ``lecun_init_``, Flax's); ``trunk_kw`` go to
     it, as for ``make_transfer_model``. ``trunk``: a built trunk, such as
-    ``models.wav2vec2.Wav2Vec2Trunk()`` (XLS-R 300M, which takes (B,
-    samples) normalized 16 kHz waveforms; ``wav2vec2_init_`` draws
-    ``transformers``' initialization); ``trunk_kw`` must then be empty."""
+    ``models.wav2vec2.Wav2Vec2Trunk()`` (XLS-R 300M) or
+    ``models.wav2vec2_conformer.Wav2Vec2ConformerTrunk()`` (the rel-pos
+    Conformer), which take (B, samples) normalized 16 kHz waveforms
+    (``models.wav2vec2.wav2vec2_init_`` draws ``transformers``'
+    initialization of either); ``trunk_kw`` must then be empty."""
     dev = resolve_device(device)
     if trunk is not None and trunk_kw:
         raise ValueError(f"a built trunk takes no trunk arguments: {sorted(trunk_kw)}")

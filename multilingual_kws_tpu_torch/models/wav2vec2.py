@@ -238,22 +238,33 @@ def wav2vec2_init_(trunk: Wav2Vec2Trunk, seed: int) -> Wav2Vec2Trunk:
     """``transformers``' ``Wav2Vec2PreTrainedModel._init_weights``, from one
     seeded generator on the trunk's device: Linear N(0, 0.02) with zero
     bias; LayerNorm identity; the feature projection U(+-1/sqrt(fan_in)),
-    bias too; feature-encoder convs Kaiming-normal, bias
-    U(+-sqrt(groups / (cin * kernel))); the positional conv's weight
-    N(0, 2 / sqrt(kernel * channels)), its ``v`` that weight and its ``g``
-    that weight's norm (so the weight is the draw), bias zero."""
+    bias too; convs Kaiming-normal, bias U(+-sqrt(groups / (cin *
+    kernel))); the positional conv's weight N(0, 2 / sqrt(kernel *
+    channels)), its ``v`` that weight and its ``g`` that weight's norm (so
+    the weight is the draw), bias zero. A Conformer trunk
+    (``models/wav2vec2_conformer.py``, ``Wav2Vec2ConformerPreTrainedModel``'s
+    rule) has no positional conv; its attention's ``pos_bias_u`` and
+    ``pos_bias_v`` are Xavier-uniform, its BatchNorm torch's default (scale
+    1, shift 0, statistics 0 and 1)."""
     dev = next(trunk.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     proj = trunk.feature_projection.projection
-    pos = trunk.encoder.pos_conv_embed.conv
+    pos = getattr(trunk.encoder, "pos_conv_embed", None)
+    pos = pos.conv if pos is not None else None
     for mod in trunk.modules():
+        for name in ("pos_bias_u", "pos_bias_v"):
+            if isinstance(getattr(mod, name, None), nn.Parameter):
+                bias = getattr(mod, name)
+                k = math.sqrt(6.0 / sum(bias.shape))  # xavier_uniform_ of (heads, head size)
+                bias.uniform_(-k, k, generator=gen)
         if mod is proj:
             k = 1.0 / math.sqrt(mod.in_features)
             mod.weight.uniform_(-k, k, generator=gen)
             mod.bias.uniform_(-k, k, generator=gen)
         elif isinstance(mod, nn.Linear):
             mod.weight.normal_(0.0, 0.02, generator=gen)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
@@ -269,4 +280,6 @@ def wav2vec2_init_(trunk: Wav2Vec2Trunk, seed: int) -> Wav2Vec2Trunk:
             if mod.bias is not None:
                 k = math.sqrt(mod.groups / (mod.in_channels * mod.kernel_size[0]))
                 mod.bias.uniform_(-k, k, generator=gen)
+        elif isinstance(mod, nn.BatchNorm1d):
+            mod.reset_parameters()
     return trunk

@@ -37,6 +37,9 @@ from .. import resolve_device
 from ..models.efficientnet import EfficientNet
 from ..models.kws_model import KWSTransferModel
 from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
+from ..models.wav2vec2_conformer import Wav2Vec2ConformerConfig, Wav2Vec2ConformerTrunk
+
+Trunk = Union[EfficientNet, Wav2Vec2Trunk, Wav2Vec2ConformerTrunk]
 
 METADATA_FILE = "kws_metadata.json"
 STATE_FILE = "state.pt"
@@ -143,7 +146,7 @@ def load_embedding_params(path, device="cuda") -> Dict[str, torch.Tensor]:
 def load_transfer_model(path, device="cuda", compute_dtype=None) -> Tuple[KWSTransferModel, Dict]:
     """A saved transfer model, in eval mode on ``device``, its trunk rebuilt
     from the metadata by ``sized_trunk`` (an EfficientNet of the recorded
-    width, depth and input prefix; a wav2vec 2.0 trunk, which
+    width, depth and input prefix; a wav2vec 2.0 or Conformer trunk, which
     ``KWSTransferModel`` refuses) and computing in ``compute_dtype`` (None:
     float32; the tensors stay float32). The model is built without storage
     (the meta device) and takes the loaded tensors as its own: no
@@ -155,35 +158,42 @@ def load_transfer_model(path, device="cuda", compute_dtype=None) -> Tuple[KWSTra
     return model.eval(), meta
 
 
-def trunk_metadata(trunk: Union[EfficientNet, Wav2Vec2Trunk]) -> Dict:
+def trunk_metadata(trunk: Trunk) -> Dict:
     """The metadata ``sized_trunk`` rebuilds ``trunk`` from, the one place
     a checkpoint's trunk is described. An EfficientNet: its width and depth
     coefficients, and its input prefix where it is not Keras' default (so
     that a default trunk's checkpoint has the JAX package's keys). A
     wav2vec 2.0 trunk: ``trunk: "wav2vec2"`` and its ``Wav2Vec2Config``'s
-    fields under ``wav2vec2``."""
+    fields under ``wav2vec2``. A Conformer trunk: ``trunk:
+    "wav2vec2_conformer"`` and its ``Wav2Vec2ConformerConfig``'s fields under
+    ``wav2vec2_conformer``."""
     if isinstance(trunk, Wav2Vec2Trunk):
         return {"trunk": "wav2vec2", "wav2vec2": dataclasses.asdict(trunk.config)}
+    if isinstance(trunk, Wav2Vec2ConformerTrunk):
+        return {"trunk": "wav2vec2_conformer", "wav2vec2_conformer": dataclasses.asdict(trunk.config)}
     meta = {"width_coefficient": trunk.width_coefficient, "depth_coefficient": trunk.depth_coefficient}
     if (trunk.input_scale, trunk.input_bias) != (1.0 / 255.0, 0.0):
         meta.update(input_scale=trunk.input_scale, input_bias=trunk.input_bias)
     return meta
 
 
-def sized_trunk(meta: Mapping, compute_dtype=None) -> Union[EfficientNet, Wav2Vec2Trunk]:
+def sized_trunk(meta: Mapping, compute_dtype=None) -> Trunk:
     """The trunk a checkpoint's metadata describes (``trunk_metadata``),
     computing in ``compute_dtype``. Without a ``trunk`` key, an EfficientNet
     with the recorded width and depth coefficients (absent: 1.0, B0) and
     input prefix (``input_scale`` / ``input_bias``, as ``import-tf`` records
     a Keras model's; absent: Keras' default 1/255 and 0). With ``trunk:
-    "wav2vec2"``, a ``Wav2Vec2Trunk`` of the recorded config. Any other kind
-    is refused: the metadata comes from outside the program."""
+    "wav2vec2"``, a ``Wav2Vec2Trunk`` of the recorded config; with ``trunk:
+    "wav2vec2_conformer"``, a ``Wav2Vec2ConformerTrunk`` of its. Any other
+    kind is refused: the metadata comes from outside the program."""
     kind = meta.get("trunk")
     if kind == "wav2vec2":
         return Wav2Vec2Trunk(Wav2Vec2Config.from_dict(meta["wav2vec2"]), compute_dtype)
+    if kind == "wav2vec2_conformer":
+        return Wav2Vec2ConformerTrunk(Wav2Vec2ConformerConfig.from_dict(meta["wav2vec2_conformer"]), compute_dtype)
     if kind is not None:
         raise ValueError(f"checkpoint metadata names an unknown trunk {kind!r}: the known trunks are "
-                         "'wav2vec2' and EfficientNet (no 'trunk' key)")
+                         "'wav2vec2_conformer', 'wav2vec2' and EfficientNet (no 'trunk' key)")
     return EfficientNet(
         width_coefficient=float(meta.get("width_coefficient", 1.0)),
         depth_coefficient=float(meta.get("depth_coefficient", 1.0)),

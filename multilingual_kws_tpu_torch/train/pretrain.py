@@ -23,11 +23,15 @@ A step on W ranks is thus the step of one process on the global batch
 a plain single-device loop.
 
 The model's trunk chooses the data path: a trunk that takes waveforms
-(``trunk.takes_waveform``, the wav2vec 2.0 trunk of ``models/wav2vec2.py``)
-gets a data set of normalized waveforms (``AudioDataset(waveform=True)``:
-the augment kernel, no frontend, no SpecAugment) for its steps and its
-validation; a model without BN layers skips BN calibration, so nothing is
-drawn for it.
+(``trunk.takes_waveform``: the wav2vec 2.0 trunks of ``models/wav2vec2.py``
+and ``models/wav2vec2_conformer.py``) gets a data set of normalized
+waveforms (``AudioDataset(waveform=True)``: the augment kernel, no
+frontend, no SpecAugment) for its steps and its validation. BN calibration
+is B0's (its BatchNorm2d moves 0.01 a step, so short runs would validate on
+stale statistics); a model without BatchNorm2d skips it, so nothing is drawn
+for it. The Conformer's BatchNorm1d (momentum 0.1) keeps the running
+statistics its training steps move, inside the epoch's CUDA graph, and
+validation reads those, as ``transformers`` trains and evaluates it.
 
 Small training sets stay on the device (``AudioDataset.build_resident_bank``,
 chosen automatically below ``resident_max_bytes``): each epoch uploads its
@@ -239,8 +243,9 @@ def pretrain(
     EfficientNetB0 with ``len(commands)`` + silence / unknown labels,
     ``config.compute_dtype`` and Flax's default initialization from
     ``config.shuffle_seed``. A model whose trunk takes waveforms (XLS-R
-    300M: ``make_embedding_model(n, trunk=Wav2Vec2Trunk())``) trains on
-    normalized waveforms (module docstring). resume_params: a port
+    300M: ``make_embedding_model(n, trunk=Wav2Vec2Trunk())``; the Conformer:
+    ``trunk=Wav2Vec2ConformerTrunk()``) trains on normalized waveforms
+    (module docstring). resume_params: a port
     ``state_dict`` of an embedding checkpoint (parameters and BN
     statistics) to start from; the optimizer starts fresh, as in the JAX
     package. checkpoint_meta: extra
@@ -318,6 +323,8 @@ def pretrain(
             for i in range(num_steps):
                 yield dataset.resident_specs(bank["bank"], idx[i], sil[i]), lbl[i, keep]
 
+        # B0's BatchNorm2d only: a BatchNorm1d (the Conformer's) keeps the
+        # statistics its own steps move, as its model trains them
         calibrate = config.bn_calibration_batches > 0 and any(isinstance(m, nn.BatchNorm2d) for m in model.modules())
         drop = torch.Generator(device=dev)
         drop.manual_seed(config.shuffle_seed + 1)
