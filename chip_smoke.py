@@ -19,8 +19,9 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
   (c) drives the main path: ``calculate_streaming_accuracy`` over a
       synthesized 10-minute 16 kHz stream with the full-width EfficientNetB0
       transfer model (seeded random weights, eval mode, batch 2048), counts
-      each kernel's launches in the first run (the inference epilogue's: 49
-      a predict batch), times five runs (median and
+      each kernel's launches in the first run (a predict batch launches the
+      inference epilogue 18 times and the MBConv middle 16), times five runs
+      (median and
       best), and checks the softmax rows
       (shape, finite, normalized; a prefix of windows against the CPU path;
       detections found). The target logit's bias is raised first, so that
@@ -249,16 +250,29 @@ nvcc into a build cache of its own (``utils/compilation_cache.py``, through
       launches into the kernels line (``phase_o_launches``).
   (p) (run right after d) the B0 trunk's inference epilogue
       (``ops/cuda_epilogue.bn_act``) at the scan's batch of 8192 windows of
-      phase c's stream: the kernel against its module-path twin at all 49
-      BatchNorm sites (float32 within EPILOGUE_F32_RTOL of each site's
-      largest value; bfloat16: ==), the softmax against
-      the module path (within EPILOGUE_SOFTMAX_GAP, phase c's card-vs-CPU
-      tolerance), one traced eager forward and one traced replay of the
-      predict program with no cuDNN BatchNorm or layout-transpose kernel, 49
-      launches a forward and 49 captured, the replay == the eager call; the
-      kernel's device time over the 49 sites beside its bytes bound. Phase
-      c's timed scan launches it 49 times a predict batch.
-      Last, one JSON line ``{"kernels": [...]}`` lists all ten kernels
+      phase c's stream: the kernel against its module-path twin at the 18
+      BatchNorm sites a float32 inference forward calls (the stem, the 16
+      project BatchNorms, the top; float32 within EPILOGUE_F32_RTOL of each
+      site's largest value) and at all 49 in bfloat16 (==), the softmax
+      against the module path (within EPILOGUE_SOFTMAX_GAP, phase c's
+      card-vs-CPU tolerance), one traced eager forward and one traced replay
+      of the predict program with no cuDNN BatchNorm or layout-transpose
+      kernel, 18 launches a forward and 18 captured, the replay == the eager
+      call; the kernel's device time over the 18 sites beside its bytes
+      bound. Phase c's timed scan launches it 18 times a predict batch.
+  (q) (run right after p) the middle of each MBConv block
+      (``ops/cuda_mbconv.mbconv_middle``) at the live feed's batch of 5, the
+      fine-tune's 64 and the scan's 8192 windows of phase c's stream, each
+      in the form the launch rule takes there: the kernel against its twin
+      at the 16 blocks (within MBCONV_RTOL of each block's largest value),
+      the per-sample and split forms == each other, the form each batch
+      took (its launch counters), 16 captured launches in a predict graph;
+      its device time over the 16 blocks beside its bytes bound, the twin's
+      time and today's ops before it (bn_act, the pad, cuDNN's depthwise
+      convolution, bn_act, the SE mean, the row products, silu, sigmoid,
+      the multiply) as the library yardstick. Phase c's timed scan launches
+      it 16 times a predict batch.
+      Last, one JSON line ``{"kernels": [...]}`` lists all eleven kernels
       (``stream_prefix`` twice: on the stream, B2, and on a clip batch,
       B6).
 
@@ -3498,7 +3512,8 @@ def step_program_phase(torch, pt_corpus, ft_corpus, ft_model):
               f"phase n: pretrain(resident_data=False): graphed != eager: {diff}, {hg} {he}")
         n_val = -(-len(val) // PT_BATCH)
         check(launches["pretrain_stream"] == {"augment_quantize": N_STEPS + 1, "clip_features": N_STEPS + 1 + n_val,
-                                              "bn_act": B0_SITES * n_val},
+                                              "bn_act": B0_F32_SITES * n_val, "mbconv_middle": B0_BLOCKS * n_val,
+                                              "mbconv_middle_split": B0_BLOCKS * n_val},
               f"phase n: pretrain(resident_data=False) launched {launches['pretrain_stream']}")
         lines.append(f"pretrain(resident_data=False), 1 epoch of {N_STEPS} steps, 1 calibration batch, {len(val)} "
                      f"validation clips: graphed == eager (history {hg}, model, the dataset's generator)")
@@ -3961,7 +3976,8 @@ def frontend_program_phase(torch, ft_model, wave, ft_corpus, pt_corpus):
     check(not diff and hg == he and torch.equal(gg, ge), f"phase o: pretrain's calibration graphed != eager: {diff}")
     n_val = -(-len(pt_corpus["val"]) // PT_BATCH)
     check(launches["pretrain calibration"] == {"augment_quantize": N_STEPS + 2, "clip_features": N_STEPS + 2 + n_val,
-                                               "bn_act": B0_SITES * n_val},
+                                               "bn_act": B0_F32_SITES * n_val, "mbconv_middle": B0_BLOCKS * n_val,
+                                               "mbconv_middle_split": B0_BLOCKS * n_val},
           f"phase o: pretrain launched {launches['pretrain calibration']}")
     lines.append(f"pretrain(resident_data=True), 1 epoch of {N_STEPS} steps and BN calibration on 2 resident-program "
                  f"batches: the model (BN statistics included), history and generator == the eager twin's")
@@ -4064,7 +4080,9 @@ def frontend_program_phase(torch, ft_model, wave, ft_corpus, pt_corpus):
 # convolutions (the epilogue kernel and the row products replace them)
 MODULE_PATH_KERNELS = ("bn_fw_inf", "nchwToNhwc", "nhwcToNchw")
 EPILOGUE_BATCH = 8192  # the scan cell's batch
-B0_SITES = 49  # the full-width B0's BatchNorm sites: bn_act launches an inference forward
+B0_SITES = 49  # the full-width B0's BatchNorm sites: bn_act launches a bfloat16 inference forward
+B0_F32_SITES = 18  # bn_act launches a float32 inference forward: the stem, 16 project BNs, the top
+B0_BLOCKS = 16  # mbconv_middle launches a float32 inference forward
 # float32 sites: |kernel - twin| <= this x the site's largest |twin|, about 8
 # float32 ulps: the kernel rounds s, t and one FMA; cuDNN's BatchNorm rounds its
 # own formula once a step (measured: 2.35e-7)
@@ -4141,20 +4159,20 @@ def kernel_names(events):
 
 def epilogue_phase(torch, model, windows, scan_launches: int):
     """Phase p: the B0 trunk's inference epilogue (``ops/cuda_epilogue.bn_act``)
-    at the scan's batch of 8192 windows: the kernel against its twin at all
-    49 sites (EPILOGUE_F32_RTOL; bfloat16: ==), the model's
-    softmax against the module path, one traced forward and one traced
-    replay of the predict program with no MODULE_PATH_KERNELS and 49
-    launches (captured 49 times), the replay == the eager call; the
-    kernel's device time over the 49 sites beside its bytes bound and the
-    twin's time. The kernels line gives ``scan_launches``, the launches of
-    phase c's timed scan."""
+    at the scan's batch of 8192 windows: the kernel against its twin at the
+    18 sites of a float32 inference forward (EPILOGUE_F32_RTOL) and the 49
+    of a bfloat16 one (==), the model's softmax against the module path, one
+    traced forward and one traced replay of the predict program with no
+    MODULE_PATH_KERNELS and 18 launches (captured 18 times), the replay ==
+    the eager call; the kernel's device time over the 18 sites beside its
+    bytes bound and the twin's time. The kernels line gives
+    ``scan_launches``, the launches of phase c's timed scan."""
     from multilingual_kws_tpu_torch.ops import cuda_epilogue
     from multilingual_kws_tpu_torch.train import graphs
 
     x = windows[:EPILOGUE_BATCH, ..., None].contiguous()
     rows, probs = epilogue_sites(torch, model, x, timed=True)
-    check(len(rows) == B0_SITES, f"{len(rows)} BatchNorm sites in the inference forward, expected {B0_SITES}")
+    check(len(rows) == B0_F32_SITES, f"{len(rows)} BatchNorm sites in the inference forward, expected {B0_F32_SITES}")
     worst = max(rows, key=lambda r: r["max_err"] / max(r["max_abs"], 1e-30))
     rtol = worst["max_err"] / max(worst["max_abs"], 1e-30)
     check(rtol <= EPILOGUE_F32_RTOL, f"bn_act vs twin at {worst['site']}: {worst['max_err']} of {worst['max_abs']}")
@@ -4167,9 +4185,9 @@ def epilogue_phase(torch, model, windows, scan_launches: int):
     before = cuda_epilogue.bn_act.launches
     eager = graphs.eval_forward(model, x)
     launches = cuda_epilogue.bn_act.launches - before
-    events, _ = device_trace(torch, lambda: graphs.eval_forward(model, x), expect=("bn_act_kernel", B0_SITES))
+    events, _ = device_trace(torch, lambda: graphs.eval_forward(model, x), expect=("bn_act_kernel", B0_F32_SITES))
     bad = sorted(n for n in kernel_names(events) if any(k in n for k in MODULE_PATH_KERNELS))
-    check(not bad and launches == B0_SITES, f"eager forward: {launches} epilogue launches; module-path kernels {bad}")
+    check(not bad and launches == B0_F32_SITES, f"eager forward: {launches} epilogue launches; module-path kernels {bad}")
     k_ms = sum(e["dur"] for e in events if e["cat"] == "kernel" and "bn_act_kernel" in e["name"]) / 1e3
     fwd_ms = sum(e["dur"] for e in events if e["cat"] == "kernel") / 1e3
     predict = graphs.serve(model, graphs.eval_forward)
@@ -4178,9 +4196,9 @@ def epilogue_phase(torch, model, windows, scan_launches: int):
         predict(x)
     captured = cuda_epilogue.bn_act.captured - captured
     replay = predict(x)
-    check(captured == B0_SITES and torch.equal(replay, eager), f"predict program: {captured} captured launches, "
+    check(captured == B0_F32_SITES and torch.equal(replay, eager), f"predict program: {captured} captured launches, "
           f"replay vs eager {float((replay - eager).abs().max())}")
-    events, _ = device_trace(torch, lambda: predict(x), expect=("bn_act_kernel", B0_SITES))
+    events, _ = device_trace(torch, lambda: predict(x), expect=("bn_act_kernel", B0_F32_SITES))
     bad = sorted(n for n in kernel_names(events) if any(k in n for k in MODULE_PATH_KERNELS))
     check(not bad, f"predict replay launches module-path kernels {bad}")
     twin_ms = sum(r["twin_ms"] for r in rows)
@@ -4189,13 +4207,128 @@ def epilogue_phase(torch, model, windows, scan_launches: int):
           f"{worst['max_err']:.3g} of {worst['max_abs']:.3g} at {worst['site']}; bfloat16 == twin at every site "
           f"({sum(r['values'] for r in rows16)} values); softmax vs the module path {gap:.3g}; eager forward {fwd_ms:.3f} device "
           f"ms, of which bn_act {k_ms:.3f} ms (bytes bound {b_ms:.3f} ms, {100 * b_ms / k_ms:.1f} %; twin "
-          f"{twin_ms:.3f} ms); 49 launches a forward, 49 captured, replay == eager, no {MODULE_PATH_KERNELS} "
-          f"kernel; {scan_launches} launches in phase c's timed scan")
+          f"{twin_ms:.3f} ms); {B0_F32_SITES} launches a forward, {B0_F32_SITES} captured, replay == eager, no "
+          f"{MODULE_PATH_KERNELS} kernel; {scan_launches} launches in phase c's timed scan")
     return [{
         "name": "bn_act", "route": "cuda", "source": f"{PKG}/csrc/epilogue.cu",
         "replaces": "no Pallas kernel: cuDNN BatchNorm inference, F.silu, the residual add",
         "launches": scan_launches, "max_abs_err": worst["max_err"], "ms": k_ms, "plain_ms": twin_ms,
         "bound_ms": b_ms, "bound_by": "bytes", "library_ms": twin_ms,
+    }]
+
+
+MBCONV_BATCHES = (5, 64, EPILOGUE_BATCH)  # the live feed's, the fine-tune's and the scan's batches
+# |kernel - twin| <= this x the block's largest |twin|: the taps, the SE mean
+# and the SE products sum in other orders than cuDNN's and cuBLAS's
+# (measured: 7.2e-6 at block 7a, batch 8192)
+MBCONV_RTOL = 3e-5
+
+
+def mbconv_today(block, x):
+    """A block's middle as the inference path ran it before mbconv_middle:
+    ``bn_act`` (expand), the pad and cuDNN's depthwise convolution,
+    ``bn_act``, the SE mean, the SE row products, silu, sigmoid, the
+    multiply (the library yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    if block.args.expand_ratio != 1:
+        x = block.expand_bn(x, act=True, fused=True)
+    x = block.dw_bn(block.dw_conv(x), act=True, fused=True)
+    se = x.mean(dim=(-2, -1), keepdim=True)
+    return x * torch.sigmoid(block.se_expand(F.silu(block.se_reduce(se, True)), True))
+
+
+def mbconv_phase(torch, model, windows, scan_launches: int):
+    """Phase q: the middle of each MBConv block (``ops/cuda_mbconv``) at
+    MBCONV_BATCHES windows, in the form the launch rule takes at each: the
+    kernel against its twin at the 16 blocks (MBCONV_RTOL), the per-sample
+    and split forms == each other (same lanes), the form each batch took by
+    its counters, 16 captured launches in a predict graph at each batch;
+    its device time over the 16 blocks (profiler) beside the bytes bound,
+    the twin's and today's ops' times (CUDA events). The kernels line gives
+    ``scan_launches``, the launches of phase c's timed scan, and the scan
+    batch's numbers."""
+    import copy
+
+    from multilingual_kws_tpu_torch import exact_float32
+    from multilingual_kws_tpu_torch.models.efficientnet import MBConvBlock
+    from multilingual_kws_tpu_torch.ops import cuda_mbconv
+    from multilingual_kws_tpu_torch.train import graphs
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = [(n, m) for n, m in model.trunk.named_children() if isinstance(m, MBConvBlock)]
+    check(len(blocks) == B0_BLOCKS, f"{len(blocks)} MBConv blocks, expected {B0_BLOCKS}")
+
+    lines, out = [], {}
+    for batch in MBCONV_BATCHES:
+        x = windows[:batch, ..., None].contiguous()
+        inputs, hooks = {}, []
+        for name, b in blocks:
+            def pre(mod, a, name=name):
+                inputs[name] = mod.expand_conv(a[0], True) if mod.args.expand_ratio != 1 else a[0]
+            hooks.append(b.register_forward_pre_hook(pre))
+        try:
+            graphs.eval_forward(model, x)
+        finally:
+            for h in hooks:
+                h.remove()
+        calls = [(inputs[n], b.middle_args(), b) for n, b in blocks]
+        split_before = cuda_mbconv.mbconv_middle_split.launches
+        worst, nbytes, forms = 0.0, 0, set()
+        with torch.inference_mode(), exact_float32():
+            for name, (xin, a, b) in zip((n for n, _ in blocks), calls):
+                got = cuda_mbconv.mbconv_middle(xin, *a)
+                twin = cuda_mbconv.mbconv_middle_plain(xin, *a)
+                _, e, h, w = xin.shape
+                k, s, se = a[1].shape[-1], a[2], a[4].reduce_weight.shape[0]
+                _, _, ho, wo = cuda_mbconv.pads(h, w, k, s)
+                forms.add("split" if cuda_mbconv.launch_plan(batch, e, se, k, s, h, w, sms).split else "per-sample")
+                split = cuda_mbconv.launch_plan(1, e, se, k, s, h, w, sms)  # both forms, one order of sums
+                one, two = cuda_mbconv.launch(xin, *a, split._replace(split=False)), cuda_mbconv.launch(xin, *a, split)
+                check(torch.equal(one, two), f"batch {batch} {name}: the per-sample and split forms differ by "
+                      f"{float((one - two).abs().max())}")
+                rel = float((got - twin).abs().max()) / max(float(twin.abs().max()), 1e-30)
+                check(rel <= MBCONV_RTOL, f"batch {batch} {name}: mbconv_middle vs twin {rel:.3g} of the largest")
+                worst = max(worst, rel)
+                nbytes += 4 * batch * e * (h * w + ho * wo)
+            split_calls = cuda_mbconv.mbconv_middle_split.launches - split_before
+            check(split_calls == (B0_BLOCKS if batch < sms else 0),
+                  f"batch {batch}: {split_calls} calls took the split form")
+
+            def kernel():
+                for xin, a, _ in calls:
+                    cuda_mbconv.mbconv_middle(xin, *a)
+
+            # a forward's launches: one a block, two in the split form; the
+            # trace may miss an event at its start, so four forwards are
+            # traced and their mean taken over the events it holds
+            per_forward = B0_BLOCKS * (2 if batch < sms else 1)
+            events, _ = device_trace(torch, kernel, iters=4, expect=("mbconv_", 3 * per_forward))
+            durs = [e["dur"] for e in events if e["cat"] == "kernel" and "mbconv_" in e["name"]]
+            k_ms = sum(durs) / len(durs) * per_forward / 1e3
+            plain_ms = cuda_ms(torch, lambda: [cuda_mbconv.mbconv_middle_plain(xin, *a) for xin, a, _ in calls], 3)
+            today_ms = cuda_ms(torch, lambda: [mbconv_today(b, xin) for xin, _, b in calls], 3)
+        predict = graphs.serve(copy.deepcopy(model), graphs.eval_forward)
+        captured = cuda_mbconv.mbconv_middle.captured
+        for _ in range(2):  # an eager call, then the capture
+            predict(x)
+        captured = cuda_mbconv.mbconv_middle.captured - captured
+        check(captured == B0_BLOCKS, f"batch {batch}: {captured} mbconv_middle launches captured, expected {B0_BLOCKS}")
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[batch] = {"ms": k_ms, "bound_ms": b_ms, "plain_ms": plain_ms, "library_ms": today_ms, "max_rel": worst}
+        lines.append(f"batch {batch} ({'/'.join(sorted(forms))}): {k_ms:.4f} ms over the 16 blocks (bytes bound "
+                     f"{b_ms:.4f} ms, {100 * b_ms / k_ms:.1f} %; twin {plain_ms:.4f} ms; today's ops {today_ms:.4f} "
+                     f"ms); worst |kernel - twin| {worst:.3g} of the largest; {captured} captured in a predict graph")
+    print("phase q: mbconv_middle: " + "; ".join(lines) + f"; {scan_launches} launches in phase c's timed scan")
+    scan = out[EPILOGUE_BATCH]
+    return [{
+        "name": "mbconv_middle", "route": "cuda", "source": f"{PKG}/csrc/mbconv.cu",
+        "replaces": "no Pallas kernel: bn_act, the pad, cuDNN's depthwise convolution, bn_act, the SE mean, "
+                    "products, silu, sigmoid and multiply",
+        "launches": scan_launches, "max_abs_err": scan["max_rel"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"], "bound_by": "bytes", "library_ms": scan["library_ms"],
+        "batches": {str(k): v for k, v in out.items()},
     }]
 
 
@@ -4213,7 +4346,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from multilingual_kws_tpu_torch.models.kws_model import make_transfer_model, seeded_init_
-    from multilingual_kws_tpu_torch.ops import _build, cuda_epilogue, cuda_fft, cuda_frontend
+    from multilingual_kws_tpu_torch.ops import _build, cuda_epilogue, cuda_fft, cuda_frontend, cuda_mbconv
     from multilingual_kws_tpu_torch.ops.micro_torch import MicroFrontendTorch
     from multilingual_kws_tpu_torch.probes import sass
     from multilingual_kws_tpu_torch.stream.engine import StreamFlags, calculate_streaming_accuracy
@@ -4314,6 +4447,7 @@ def main() -> int:
         cuda_fft.stream_prefix.launches = 0
         cuda_frontend.stream_suffix.launches = 0
         cuda_epilogue.bn_act.launches = 0
+        cuda_mbconv.mbconv_middle.launches = 0
         t1 = time.perf_counter()
         results, inferences = calculate_streaming_accuracy(
             model, [flags], batch_size=BATCH, verbose=False
@@ -4324,6 +4458,7 @@ def main() -> int:
             "stream_prefix": cuda_fft.stream_prefix.launches,
             "stream_suffix": cuda_frontend.stream_suffix.launches,
             "bn_act": cuda_epilogue.bn_act.launches,
+            "mbconv_middle": cuda_mbconv.mbconv_middle.launches,
         }
         # four more timed runs: the host's share of the wall varies by run
         for _ in range(4):
@@ -4337,10 +4472,14 @@ def main() -> int:
     check(np.abs(inferences.sum(1) - 1).max() < 1e-4, "softmax rows do not sum to 1")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
-    # the scan's predict program replays the epilogue's 49 launches a batch
+    # the scan's predict program replays the epilogue's 18 launches and the
+    # MBConv middle's 16 a batch
     n_batches = -(-n_w // BATCH)
-    check(launches["bn_act"] == B0_SITES * n_batches,
-          f"bn_act launched {launches['bn_act']} times on the scan, expected {B0_SITES} x {n_batches} batches")
+    check(launches["bn_act"] == B0_F32_SITES * n_batches,
+          f"bn_act launched {launches['bn_act']} times on the scan, expected {B0_F32_SITES} x {n_batches} batches")
+    check(launches["mbconv_middle"] == B0_BLOCKS * n_batches,
+          f"mbconv_middle launched {launches['mbconv_middle']} times on the scan, expected {B0_BLOCKS} x "
+          f"{n_batches} batches")
     # reference on a small input: the first windows through the CPU path
     feats_cpu = MicroFrontendTorch(device="cpu").stream_features(i16[: SR + 255 * 320], 256)
     check(torch.equal(feats_gpu.cpu(), feats_cpu), "stream features differ from the CPU path")
@@ -4454,7 +4593,11 @@ def main() -> int:
               f"float features): {json.dumps(loop)}")
     del cpu_model, batch, base, audio
     # (p) the B0 trunk's inference epilogue at the scan's batch
-    kernels += epilogue_phase(torch, model, fe.stream_features(torch.from_numpy(i16).to(dev), n_w), launches["bn_act"])
+    windows = fe.stream_features(torch.from_numpy(i16).to(dev), n_w)
+    kernels += epilogue_phase(torch, model, windows, launches["bn_act"])
+    # (q) the middle of each MBConv block at the live feed's, the fine-tune's and the scan's batches
+    kernels += mbconv_phase(torch, model, windows, launches["mbconv_middle"])
+    del windows
 
     # (e) the fine-tune slice, and (f)'s batch eval and training batches on
     # its fine-tuned model and corpus

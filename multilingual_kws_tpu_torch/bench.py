@@ -116,8 +116,11 @@ def flops_per_clip(model: torch.nn.Module) -> int:
     """Floating-point operations of one clip's forward through ``model``'s
     convolutions and dense layers: 2 x their multiply-adds, the same count
     whatever computes them. A convolution's come from its weight and output
-    shapes (one forward of one zero clip); every dense layer acts once a
-    clip, on the pooled features, so its are its weight's size."""
+    shapes (one forward of one zero clip, on the module path, where every
+    convolution module is called: an input that autograd records keeps the
+    trunk off its inference path, whose MBConv kernel calls no depthwise or
+    SE module); every dense layer acts once a clip, on the pooled features,
+    so its are its weight's size."""
     dev = next(model.parameters()).device
     total = 0
 
@@ -127,8 +130,8 @@ def flops_per_clip(model: torch.nn.Module) -> int:
 
     hooks = [m.register_forward_hook(conv) for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
     try:
-        with torch.inference_mode():
-            model(torch.zeros((1, 49, 40, 1), device=dev))
+        with torch.enable_grad():
+            model(torch.zeros((1, 49, 40, 1), device=dev, requires_grad=True))
     finally:
         for h in hooks:
             h.remove()

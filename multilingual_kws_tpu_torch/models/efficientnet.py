@@ -23,9 +23,18 @@ convolution's BatchNorm, the swish after it and the residual add as one
 pass of the epilogue kernel (``ops/cuda_epilogue.bn_act``) through the
 ``BatchNorm`` modules, so their forward hooks still fire, and in float32
 each dense convolution as a matrix product over the channels_last rows
-(``rows_conv``), so no layout transpose runs. Every other call (train
-mode, a trainable trunk parameter, CPU tensors) runs the module path:
-cuDNN's convolutions, BatchNorm, ``F.silu`` and the add as separate ops.
+(``rows_conv``), so no layout transpose runs. In float32 the middle of
+each MBConv block, from the expand product's raw output to the gated input
+of the project product (expand BatchNorm and swish, the depthwise
+convolution, its BatchNorm and swish, the squeeze-excitation and its
+gate), is one kernel (``ops/cuda_mbconv.mbconv_middle``): there the
+``expand_bn``, ``dw_bn``, ``dw_conv``, ``se_reduce`` and ``se_expand``
+modules are not called and their forward hooks do not fire; the stem's,
+the project products' and the top's BatchNorms still go through their
+modules (18 ``bn_act`` calls a B0 forward, 16 ``mbconv_middle``). Every
+other call (train mode, a trainable trunk parameter, CPU tensors) runs the
+module path: cuDNN's convolutions, BatchNorm, ``F.silu`` and the add as
+separate ops.
 
 In ``train()`` mode BatchNorm normalizes with the batch's statistics and
 updates its running statistics as Flax's ``nn.BatchNorm`` does
@@ -63,7 +72,7 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import cuda_epilogue
+from ..ops import cuda_epilogue, cuda_mbconv
 from ..parallel import mesh
 
 
@@ -261,19 +270,37 @@ class MBConvBlock(nn.Module):
 
     def forward(self, x, drop_generator=None, fused: bool = False):
         inputs = x
-        if self.args.expand_ratio != 1:
-            x = self.expand_bn(self.expand_conv(x, fused), act=True, fused=fused)
-        x = self.dw_bn(self.dw_conv(x), act=True, fused=fused)
-        if self.has_se:
-            se = x.mean(dim=(-2, -1), keepdim=True)
-            se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se, fused)), fused))
-            x = x * se
+        if fused and self.has_se and x.dtype == torch.float32:
+            # the expand product's raw output (or the block's input) through the middle kernel
+            x = cuda_mbconv.mbconv_middle(self.expand_conv(x, fused) if self.args.expand_ratio != 1 else x,
+                                          *self.middle_args())
+        else:
+            if self.args.expand_ratio != 1:
+                x = self.expand_bn(self.expand_conv(x, fused), act=True, fused=fused)
+            x = self.dw_bn(self.dw_conv(x), act=True, fused=fused)
+            if self.has_se:
+                se = x.mean(dim=(-2, -1), keepdim=True)
+                se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se, fused)), fused))
+                x = x * se
         x = self.project_conv(x, fused)
         if not self.residual:
             return self.project_bn(x, fused=fused)
         if self.training and self.drop_rate > 0:
             return drop_connect(self.project_bn(x), self.drop_rate, drop_generator) + inputs
         return self.project_bn(x, residual=inputs, fused=fused)
+
+    def middle_args(self):
+        """``ops/cuda_mbconv.mbconv_middle``'s arguments after its input: the
+        expand BatchNorm (None where the block does not expand), the
+        depthwise weight and stride, the depthwise BatchNorm, the SE
+        products."""
+        def bn(m):
+            return cuda_mbconv.BN(m.running_mean, m.running_var, m.weight, m.bias, m.eps)
+
+        return (bn(self.expand_bn) if self.args.expand_ratio != 1 else None, self.dw_conv.weight,
+                self.dw_conv.stride[0], bn(self.dw_bn),
+                cuda_mbconv.SE(self.se_reduce.weight, self.se_reduce.bias, self.se_expand.weight,
+                               self.se_expand.bias))
 
 
 def _on_card(x: torch.Tensor) -> bool:

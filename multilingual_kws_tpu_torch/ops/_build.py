@@ -77,6 +77,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "kws_bn_act": [P, P, P, P, P, P, F, L, I, I, I, P, P],
         "kws_error_string": [I],
     },
+    "mbconv": {
+        # x, out, means (or null), the expand BatchNorm's mean, var, weight,
+        # bias (all null: no expand), its eps, dw weight, the depthwise
+        # BatchNorm's mean, var, weight, bias, its eps, se_reduce weight,
+        # bias, se_expand weight, bias, n, e, se, hin, win, hout, wout, k,
+        # stride, pad top, pad left, lanes, group, pad, wp, pp, psg, osg,
+        # split, stream
+        "kws_mbconv_middle": [P, P, P, P, P, P, P, F, P, P, P, P, P, F, P, P, P, P,
+                              I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, P],
+        "kws_error_string": [I],
+    },
 }
 
 # every kernel wrapper, each with two counters: ``launches``, the launches

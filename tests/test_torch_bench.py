@@ -110,6 +110,21 @@ def test_flops_per_clip_matches_torch_s_flop_counter():
     assert 5e7 < counter.get_total_flops() < 6e7
 
 
+def test_flops_per_clip_counts_the_module_path_on_the_inference_path(monkeypatch):
+    """On a card the float32 inference forward runs each MBConv block's
+    middle as one kernel, which calls no depthwise or SE convolution module;
+    the count is taken where every module is called, so it is the same with
+    the inference path taken (mocked here) as without."""
+    from multilingual_kws_tpu_torch.models import efficientnet
+
+    model = bench.embedding_model("float32", "cpu")
+    want = bench.flops_per_clip(model)
+    monkeypatch.setattr(efficientnet, "_on_card", lambda x: True)
+    with torch.inference_mode():
+        assert model.trunk.inference_path(torch.zeros(1, 49, 40, 1))  # the mocked card's path
+    assert bench.flops_per_clip(model) == want == 53_527_232  # kwsbench/counts/model.py's forward_flops("classifier")
+
+
 def test_get_baseline_reads_the_cache_and_writes_nothing(monkeypatch, tmp_path):
     cache = REPO / "benchmarks" / "ref_baseline.json"
     before = (cache.read_bytes(), cache.stat().st_mtime_ns)

@@ -3,21 +3,25 @@ BatchNorm, swish and the residual add in one kernel pass) and the path rule
 that chooses it (``EfficientNet.inference_path``).
 
 On the CPU: the rule, observed through a mocked card check
-(``efficientnet._on_card``) and the calls the forward makes to the wrapper;
-the wrapper's plain version == the module path's ops at every kind of site,
-float32 and bfloat16; BatchNorm forward hooks fire on both paths; the
+(``efficientnet._on_card``) and the calls the forward makes to the wrapper
+(18 a float32 inference forward: the MBConv middles' expand and depthwise
+BatchNorms run inside ``ops/cuda_mbconv.mbconv_middle``); the wrapper's
+plain version == the module path's ops at every kind of site, float32 and
+bfloat16; BatchNorm forward hooks fire on both paths (on the inference
+path, those of the BatchNorms it calls: all but the middles'); the
 mocked inference path's softmax against the module path's; the train-mode
 pretraining step == the step of a frozen copy of the module forwards as
 they were before the epilogue (so training never enters the new code).
 
 On a card (``-m card``; run as ``python -m pytest tests/test_torch_epilogue.py
 --noconftest -m card``, so that no JAX is imported): the kernel against its
-twin at all 49 sites at the scan's batch of 8192 windows (float32 within
-``chip_smoke.EPILOGUE_F32_RTOL`` of each site's largest value; bfloat16: ==),
+twin at the scan's batch of 8192 windows at the 18 sites of a float32
+inference forward (within ``chip_smoke.EPILOGUE_F32_RTOL`` of each site's
+largest value) and the 49 of a bfloat16 one (==),
 the transfer model's softmax against the module path, chosen by the public
 rule (``chip_smoke.module_path_forward``; within
 ``chip_smoke.EPILOGUE_SOFTMAX_GAP``), the graphed predict
-== its eager call with 49 captured launches, no cuDNN BatchNorm or layout
+== its eager call with 18 captured launches, no cuDNN BatchNorm or layout
 transpose in a traced replay, the kernel's one-value-a-thread form (odd
 channel counts, unaligned tensors), and the pretraining step == the frozen
 copy there too.
@@ -44,6 +48,9 @@ from multilingual_kws_tpu_torch.train.steps import flat_adam, make_pretrain_step
 
 WIDTH = 0.25  # full depth: all 49 BatchNorm sites
 SITES = 49
+# the bn_act calls of a float32 inference forward: the stem, the 16 project
+# BatchNorms and the top (the MBConv middles run in ops/cuda_mbconv)
+INFERENCE_SITES = 18
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -118,7 +125,7 @@ def test_the_inference_path_rule(case, monkeypatch):
         with ctx():
             assert model.trunk.inference_path(x) is expected
             model(x, drop_generator=gen)
-        assert len(calls) == (SITES if expected else 0)
+        assert len(calls) == (INFERENCE_SITES if expected else 0)
 
 
 SITE_KINDS = {  # a site of each kind: (module path, act, residual)
@@ -176,7 +183,10 @@ def test_batchnorm_hooks_fire_in_an_eval_forward(inference_path, monkeypatch):
         model(_specs())
     for h in handles:
         h.remove()
-    assert len(bns) == SITES and fired == bns
+    middles = {id(m) for blk in model.modules() if isinstance(blk, efficientnet.MBConvBlock)
+               for m in (getattr(blk, "expand_bn", None), blk.dw_bn) if m is not None}
+    want = [bn for bn in bns if id(bn) not in middles] if inference_path else bns
+    assert len(bns) == SITES and len(want) == (INFERENCE_SITES if inference_path else SITES) and fired == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -339,7 +349,7 @@ def test_the_kernel_matches_its_twin_at_every_site(card, scan_batch, dtype):
     if dtype == "bfloat16":
         model = chip_smoke.bf16_copy(torch, model)
     rows, _ = chip_smoke.epilogue_sites(torch, model, x)
-    assert len(rows) == SITES
+    assert len(rows) == (INFERENCE_SITES if dtype == "float32" else SITES)
     worst = max(r["max_err"] / max(r["max_abs"], 1e-30) for r in rows)
     share = sum(r["differ"] for r in rows) / sum(r["values"] for r in rows)
     print(f"{dtype}: worst |kernel - twin| / largest |twin| at a site {worst:.3g}; share of values that "
@@ -375,12 +385,12 @@ def test_the_graphed_predict_launches_no_batchnorm_or_transpose(card, scan_batch
     captured = cuda_epilogue.bn_act.captured
     for _ in range(2):  # an eager call, then the capture
         predict(x)
-    assert cuda_epilogue.bn_act.captured - captured == SITES
+    assert cuda_epilogue.bn_act.captured - captured == INFERENCE_SITES
     assert torch.equal(predict(x), eager)
-    events, _ = chip_smoke.device_trace(torch, lambda: predict(x), expect=("bn_act_kernel", SITES))
+    events, _ = chip_smoke.device_trace(torch, lambda: predict(x), expect=("bn_act_kernel", INFERENCE_SITES))
     names = chip_smoke.kernel_names(events)
     assert not [n for n in names if any(k in n for k in chip_smoke.MODULE_PATH_KERNELS)], sorted(names)
-    assert sum(e["cat"] == "kernel" and "bn_act_kernel" in e["name"] for e in events) >= SITES
+    assert sum(e["cat"] == "kernel" and "bn_act_kernel" in e["name"] for e in events) >= INFERENCE_SITES
 
 
 @pytest.mark.card
